@@ -1,0 +1,445 @@
+"""Array-level data plane for the MV operator hot path, on PyTorch.
+
+The counterpart of ``repro.mv.dataplane``, with tensors in place of numpy
+arrays. Every primitive is bitwise-equal to that module's numpy reference.
+Dispatch is by the device of the tensor it is given, and nothing else:
+
+* a CPU tensor takes the primitive's plain PyTorch version;
+* a CUDA tensor takes the hand-written Hopper kernel (``csrc/dataplane.cu``)
+  where the primitive has one, or the wrapper raises. No path falls back.
+
+Kernels, each with its plain version beside it and a launch counter
+(``launches``) that the wrapper bumps where it launches and nowhere else:
+
+* ``filter_gt``           — ``filter_mask``, FILTER's pinned-dtype compare;
+* ``map_derived``         — MAP's ``a*1.0001f + b/(1+|b|)`` in one fused
+                            pass, every operation correctly rounded;
+* ``fixed_point_encode``  — AGG's ``rint(f64(v)·2^16)`` (times the Z-set
+                            weight, wrapping mod 2^64);
+* ``probe_sorted``        — JOIN's searchsorted-left probe, clipped, with
+                            the hit test at the clipped position.
+
+``group_reduce``'s grouping and ``first_occurrence``'s stable sort have no
+kernel in the reference either; they are PyTorch sorts, ``unique`` and
+integer ``index_add_`` on the tensor's device (integer sums are exact in any
+order). ``hash64`` / ``partition_ids`` / ``partition_index`` are plain
+PyTorch here: torch has no ``>>`` or ``%`` on ``uint64``, so the splitmix64
+finalizer runs on int64 with logical shifts emulated by masking and the
+modulus taken on 32-bit halves.
+
+Wrappers launch on ``torch.cuda.current_stream()`` and never synchronise.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import numpy as np
+import torch
+
+__all__ = [
+    "hash64",
+    "partition_ids",
+    "partition_index",
+    "filter_mask",
+    "map_derived",
+    "fixed_point_encode",
+    "group_reduce",
+    "first_occurrence",
+    "probe_sorted",
+    "launches",
+    "reset_launches",
+    "AGG_QUANTUM",
+]
+
+# Fixed-point quantum for AGG sums (mirrors tableops.AGG_QUANTUM).
+AGG_QUANTUM = 2.0**16
+
+_SPLITMIX_C1 = 0xBF58476D1CE4E5B9
+_SPLITMIX_C2 = 0x94D049BB133111EB
+
+# numpy's ``np.float32(1.0001)``, widened exactly: an f64 column multiplies
+# by this value, not by the double nearest 1.0001.
+_MAP_C = float(np.float32(1.0001))
+
+# ---------------------------------------------------------------------------
+# Launch counters and the CUDA library
+# ---------------------------------------------------------------------------
+
+KERNELS = ("filter_gt", "map_derived", "fixed_point_encode", "probe_sorted")
+launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+_count_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch counter to 0."""
+    with _count_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def _count(kernel: str) -> None:
+    with _count_lock:
+        launches[kernel] += 1
+
+
+_lib_lock = threading.Lock()
+_lib_handle: list[ctypes.CDLL] = []
+
+
+def _lib() -> ctypes.CDLL:
+    """The built ``csrc/dataplane.cu`` with every signature declared."""
+    with _lib_lock:
+        if not _lib_handle:
+            from .. import native
+
+            lib = native.library("dataplane")
+            P, S, N = ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong
+            I = ctypes.c_int
+            sigs = {
+                "sc_filter_gt_f32": [P, ctypes.c_float, P, N, S],
+                "sc_filter_gt_f64": [P, ctypes.c_double, P, N, S],
+                "sc_filter_gt_i64": [P, ctypes.c_double, P, N, S],
+                "sc_map_derived": [P, I, P, I, P, N, S],
+                "sc_fixed_point_encode": [P, I, P, P, N, S],
+                "sc_probe_sorted": [P, N, P, P, P, N, S],
+            }
+            for fn, argtypes in sigs.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _lib_handle.append(lib)
+        return _lib_handle[0]
+
+
+def _launch(kernel: str, fn: str, device: torch.device, *args) -> None:
+    """Call one C entry point on ``device``'s current stream; raise when the
+    launch reports an error, count it otherwise."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(_lib(), fn)(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
+    _count(kernel)
+
+
+def _on_cpu(*tensors) -> bool:
+    """True when every given tensor lies on the CPU (plain version); False
+    when every one lies on a CUDA device (kernel). Anything else raises."""
+    devs = {t.device.type for t in tensors if t is not None}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        if len({t.device for t in tensors if t is not None}) != 1:
+            raise ValueError("inputs lie on different CUDA devices")
+        return False
+    raise ValueError(f"unsupported device mix {sorted(devs)}: expected cpu or cuda")
+
+
+def _check_1d(name: str, t: torch.Tensor, dtypes) -> None:
+    if t.dim() != 1:
+        raise ValueError(f"{name}: expected a 1-D tensor, got shape {tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# splitmix64 hash / partitioning (plain PyTorch; int64 emulation of uint64)
+# ---------------------------------------------------------------------------
+
+def _signed(c: int) -> int:
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _lsr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns (torch's ``>>`` is
+    arithmetic on int64)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _hash64_i64(keys: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer on the int64 bit pattern of ``keys``; int64
+    multiplication wraps mod 2^64 exactly like the uint64 reference."""
+    x = keys.to(torch.int64).clone()
+    x ^= _lsr(x, 30)
+    x *= _signed(_SPLITMIX_C1)
+    x ^= _lsr(x, 27)
+    x *= _signed(_SPLITMIX_C2)
+    x ^= _lsr(x, 31)
+    return x
+
+
+def hash64(keys: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer as ``uint64`` — bitwise the reference's."""
+    return _hash64_i64(keys).view(torch.uint64)
+
+
+def _umod(x: torch.Tensor, P: int) -> torch.Tensor:
+    """``uint64(x) % P`` for int64 bit patterns and 1 <= P < 2^31, on 32-bit
+    halves so every intermediate stays a non-negative int64."""
+    hi = _lsr(x, 32)
+    lo = x & 0xFFFFFFFF
+    return ((hi % P) * ((1 << 32) % P) + lo % P) % P
+
+
+def partition_ids(keys: torch.Tensor, n_partitions: int) -> torch.Tensor:
+    """Partition id of each key: ``splitmix64(key) % P`` (0 when P=1)."""
+    P = max(int(n_partitions), 1)
+    if P == 1:
+        return torch.zeros(len(keys), dtype=torch.int64, device=keys.device)
+    if P >= 1 << 31:
+        raise ValueError(f"n_partitions={P} must be < 2^31")
+    return _umod(_hash64_i64(keys), P)
+
+
+def partition_index(keys: torch.Tensor,
+                    n_partitions: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Grouped row index of a P-way hash split: ``(order, counts)``, with
+    ``order`` the stable partition-major permutation and ``counts[p]``
+    partition p's row count."""
+    P = max(int(n_partitions), 1)
+    n = len(keys)
+    if P == 1:
+        return (torch.arange(n, dtype=torch.int64, device=keys.device),
+                torch.tensor([n], dtype=torch.int64, device=keys.device))
+    pid = partition_ids(keys, P)
+    counts = torch.bincount(pid, minlength=P).to(torch.int64)
+    order = torch.sort(pid, stable=True).indices
+    return order, counts
+
+
+# ---------------------------------------------------------------------------
+# FILTER compare
+# ---------------------------------------------------------------------------
+
+def _filter_plain(col: torch.Tensor, threshold: float) -> torch.Tensor:
+    if col.dtype == torch.float32:
+        return col > float(np.float32(threshold))
+    if col.dtype.is_floating_point:
+        return col > float(threshold)
+    return col.to(torch.float64) > float(threshold)
+
+
+def _filter_cuda(col: torch.Tensor, threshold: float) -> torch.Tensor:
+    _check_1d("filter_mask", col, (torch.float32, torch.float64, torch.int64))
+    out = torch.empty(len(col), dtype=torch.bool, device=col.device)
+    if len(col) == 0:
+        return out
+    if col.dtype == torch.float32:
+        fn, thr = "sc_filter_gt_f32", ctypes.c_float(float(np.float32(threshold)))
+    elif col.dtype == torch.float64:
+        fn, thr = "sc_filter_gt_f64", ctypes.c_double(float(threshold))
+    else:
+        fn, thr = "sc_filter_gt_i64", ctypes.c_double(float(threshold))
+    _launch("filter_gt", fn, col.device, _ptr(col), thr, _ptr(out),
+            ctypes.c_longlong(len(col)))
+    return out
+
+
+def filter_mask(col: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Boolean FILTER mask ``col > threshold`` under the pinned-dtype compare
+    contract: a float column compares in its own width, anything else in
+    float64 (torch alone would compare an int64 column in float32)."""
+    if _on_cpu(col):
+        return _filter_plain(col, threshold)
+    return _filter_cuda(col, threshold)
+
+
+# ---------------------------------------------------------------------------
+# MAP expression
+# ---------------------------------------------------------------------------
+
+def _softsign_plain(x: torch.Tensor) -> torch.Tensor:
+    """numpy's ``x / (np.float32(1.0) + np.abs(x))``: float columns stay in
+    their width; an integer column takes |x| in integers, then float64."""
+    if x.dtype.is_floating_point:
+        return x / (1.0 + torch.abs(x))
+    return x.to(torch.float64) / (torch.abs(x).to(torch.float64) + 1.0)
+
+
+def _mul_plain(a: torch.Tensor) -> torch.Tensor:
+    """numpy's ``a * np.float32(1.0001)``: in a's width for float columns
+    (the constant widened exactly for f64), float64 for integer columns."""
+    if a.dtype.is_floating_point:
+        return a * _MAP_C
+    return a.to(torch.float64) * _MAP_C
+
+
+def _map_plain(a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    if b is None:
+        return _softsign_plain(a)
+    p, s = _mul_plain(a), _softsign_plain(b)
+    rt = torch.promote_types(p.dtype, s.dtype)
+    return p.to(rt) + s.to(rt)
+
+
+_MAP_DTYPES = (torch.float32, torch.float64)
+
+
+def _as_map_input(x: torch.Tensor) -> torch.Tensor:
+    """An integer column enters the kernel as float64, which is numpy's
+    promotion (|x| then differs only at INT64_MIN, where the integer abs
+    wraps)."""
+    return x if x.dtype in _MAP_DTYPES else x.to(torch.float64)
+
+
+def _map_cuda(a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    a = _as_map_input(a)
+    b = None if b is None else _as_map_input(b)
+    _check_1d("map_derived a", a, _MAP_DTYPES)
+    if b is not None:
+        _check_1d("map_derived b", b, _MAP_DTYPES)
+        if len(b) != len(a):
+            raise ValueError(f"map_derived: lengths differ ({len(a)} vs {len(b)})")
+        dtype = torch.promote_types(a.dtype, b.dtype)
+    else:
+        dtype = a.dtype
+    out = torch.empty(len(a), dtype=dtype, device=a.device)
+    if len(a) == 0:
+        return out
+    a64 = int(a.dtype == torch.float64)
+    b64 = int(b is not None and b.dtype == torch.float64)
+    _launch("map_derived", "sc_map_derived", a.device, _ptr(a), a64, _ptr(b),
+            b64, _ptr(out), ctypes.c_longlong(len(a)))
+    return out
+
+
+def map_derived(a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """The MAP expression ``a*1.0001f + softsign(b)`` (``softsign(a)`` with
+    one input column), every mul/add/div/abs correctly rounded and unfused,
+    with numpy's result dtype for every input combination."""
+    if _on_cpu(a, b):
+        return _map_plain(a, b)
+    return _map_cuda(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-point AGG: encode + weighted segment reduction
+# ---------------------------------------------------------------------------
+
+def _encode_plain(values: torch.Tensor,
+                  weights: torch.Tensor | None) -> torch.Tensor:
+    fp = torch.round(values.to(torch.float64) * AGG_QUANTUM).to(torch.int64)
+    return fp if weights is None else fp * weights.to(torch.int64)
+
+
+def _encode_cuda(values: torch.Tensor,
+                 weights: torch.Tensor | None) -> torch.Tensor:
+    if values.dtype not in _MAP_DTYPES:
+        values = values.to(torch.float64)  # numpy's asarray(values, float64)
+    _check_1d("fixed_point_encode values", values, _MAP_DTYPES)
+    if weights is not None:
+        weights = weights.to(torch.int64)
+        _check_1d("fixed_point_encode weights", weights, (torch.int64,))
+        if len(weights) != len(values):
+            raise ValueError("fixed_point_encode: weights length differs")
+    out = torch.empty(len(values), dtype=torch.int64, device=values.device)
+    if len(values) == 0:
+        return out
+    _launch("fixed_point_encode", "sc_fixed_point_encode", values.device,
+            _ptr(values), int(values.dtype == torch.float64), _ptr(weights),
+            _ptr(out), ctypes.c_longlong(len(values)))
+    return out
+
+
+def fixed_point_encode(values: torch.Tensor,
+                       weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-row int64 AGG contribution ``rint(v * AGG_QUANTUM)`` (half to
+    even), times the signed Z-set weight when given (wrapping mod 2^64)."""
+    if _on_cpu(values, weights):
+        return _encode_plain(values, weights)
+    return _encode_cuda(values, weights)
+
+
+def group_reduce(
+    keys: torch.Tensor,
+    cols: dict[str, tuple[torch.Tensor, str]],
+    weights: torch.Tensor | None = None,
+    stable: bool = False,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor], torch.Tensor]:
+    """Weighted segment reduction over sorted unique group keys.
+
+    ``cols`` maps output name → ``(values, kind)``; kind ``"fixed"`` encodes
+    values through ``fixed_point_encode`` (times ``weights`` when given),
+    kind ``"int"`` sums raw int64. Returns ``(sorted unique keys, {name:
+    int64 sums}, counts)`` with ``counts`` the per-group sum of ``weights``
+    (group sizes when None).
+
+    Every sum is an exact int64 sum (mod 2^64), so ``index_add_``'s
+    accumulation order cannot change it; ``stable`` is the caller's declared
+    order sensitivity, kept for the reference's signature — this grouping
+    (``torch.unique``) does not depend on row order at all.
+    """
+    del stable  # the grouping below is order-free; see docstring
+    uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
+    n = len(uniq)
+    sums: dict[str, torch.Tensor] = {}
+    for name, (v, kind) in cols.items():
+        contrib = (
+            v.to(torch.int64) if kind == "int"
+            else fixed_point_encode(v, weights)
+        )
+        acc = torch.zeros(n, dtype=torch.int64, device=keys.device)
+        sums[name] = acc.index_add_(0, inv, contrib)
+    if weights is None:
+        counts = torch.bincount(inv, minlength=n).to(torch.int64)
+    else:
+        counts = torch.zeros(n, dtype=torch.int64, device=keys.device)
+        counts.index_add_(0, inv, weights.to(torch.int64))
+    return uniq, sums, counts
+
+
+# ---------------------------------------------------------------------------
+# Join probe: first-occurrence index build + sorted probe
+# ---------------------------------------------------------------------------
+
+def first_occurrence(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sorted unique keys, row index of each key's FIRST occurrence) — the
+    PK-style probe index every right join side is reduced to. The stable
+    sort is the contract (first occurrence in input order)."""
+    sk, order = torch.sort(keys, stable=True)
+    if len(sk) == 0:
+        return sk, order
+    first = torch.ones(len(sk), dtype=torch.bool, device=keys.device)
+    torch.ne(sk[1:], sk[:-1], out=first[1:])
+    sel = torch.nonzero(first).squeeze(1)
+    return sk[sel], order[sel]
+
+
+def _probe_plain(uniq: torch.Tensor,
+                 probe: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    pos = torch.searchsorted(uniq, probe)
+    posc = torch.clamp(pos, 0, len(uniq) - 1)
+    return uniq[posc] == probe, posc
+
+
+def _probe_cuda(uniq: torch.Tensor,
+                probe: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    _check_1d("probe_sorted uniq", uniq, (torch.int64,))
+    _check_1d("probe_sorted probe", probe, (torch.int64,))
+    n = len(probe)
+    hit = torch.empty(n, dtype=torch.bool, device=probe.device)
+    pos = torch.empty(n, dtype=torch.int64, device=probe.device)
+    _launch("probe_sorted", "sc_probe_sorted", probe.device, _ptr(uniq),
+            ctypes.c_longlong(len(uniq)), _ptr(probe), _ptr(hit), _ptr(pos),
+            ctypes.c_longlong(n))
+    return hit, pos
+
+
+def probe_sorted(uniq: torch.Tensor,
+                 probe: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Probe sorted-unique ``uniq`` with ``probe`` values: ``(hit, pos)``
+    where ``pos`` is the searchsorted-left position clipped to the valid
+    range and ``hit[i]`` iff ``uniq[pos[i]] == probe[i]``. Empty ``uniq``
+    (or no probes) → all-miss with zero positions."""
+    if len(uniq) == 0 or len(probe) == 0:
+        return (torch.zeros(len(probe), dtype=torch.bool, device=probe.device),
+                torch.zeros(len(probe), dtype=torch.int64, device=probe.device))
+    if _on_cpu(uniq, probe):
+        return _probe_plain(uniq, probe)
+    return _probe_cuda(uniq, probe)

@@ -1,0 +1,141 @@
+"""The port's CUDA kernels on the card: each against the CPU path (the plain
+PyTorch versions, which ``tests/test_torch_dataplane.py`` holds against the
+JAX package) at ragged sizes, the wrappers' refusals, the launch counters,
+and a small refresh round card against CPU. Needs a card; every test skips
+without one:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as core
+import repro_torch.mv as mv
+from repro_torch.mv import dataplane as dp
+from repro_torch.mv import tableops as T
+
+pytestmark = pytest.mark.cuda
+
+SIZES = [1, 255, 256, 257, 100_003]
+I64MAX = np.iinfo(np.int64).max
+I64MIN = np.iinfo(np.int64).min
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def same_bits(cpu_out, cuda_out, ctx=""):
+    cpu_out = cpu_out if isinstance(cpu_out, tuple) else (cpu_out,)
+    cuda_out = cuda_out if isinstance(cuda_out, tuple) else (cuda_out,)
+    for a, b in zip(cpu_out, cuda_out):
+        b = b.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape, ctx
+        assert a.numpy().tobytes() == b.numpy().tobytes(), ctx
+
+
+def rand(n, dtype, seed, scale=3.0):
+    a = np.random.default_rng(seed).standard_normal(n) * scale
+    return torch.from_numpy(a.astype(dtype))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_filter_kernel_matches_cpu(dev, n):
+    for dtype in (np.float32, np.float64, np.int64):
+        col = rand(n, dtype, n, scale=100)
+        for thr in (0.1, -0.3):
+            dp.reset_launches()
+            same_bits(dp.filter_mask(col, thr), dp.filter_mask(col.to(dev), thr),
+                      f"{dtype} {thr}")
+            assert dp.launches["filter_gt"] == 1
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_map_kernel_matches_cpu_every_dtype_pair(dev, n):
+    pairs = [(np.float32, np.float32), (np.float32, np.float64),
+             (np.float64, np.float32), (np.float64, np.float64),
+             (np.float64, np.int64), (np.float32, None), (np.float64, None),
+             (np.int64, None)]
+    for adt, bdt in pairs:
+        a = rand(n, adt, n, 50)
+        b = None if bdt is None else rand(n, bdt, n + 1, 50)
+        got = dp.map_derived(a.to(dev), None if b is None else b.to(dev))
+        same_bits(dp.map_derived(a, b), got, f"{adt} {bdt}")
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_encode_kernel_matches_cpu(dev, n):
+    rng = np.random.default_rng(n)
+    w = torch.from_numpy(rng.integers(-3, 4, n).astype(np.int64))
+    w[: min(n, 4)] = torch.tensor([1 << 45, I64MAX, I64MIN, -7][: min(n, 4)])
+    for dtype in (np.float32, np.float64):
+        v = rand(n, dtype, n, 100)
+        for weights in (None, w):
+            got = dp.fixed_point_encode(
+                v.to(dev), None if weights is None else weights.to(dev))
+            same_bits(dp.fixed_point_encode(v, weights), got, f"{dtype}")
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_probe_kernel_matches_cpu(dev, n):
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(rng.integers(-50, 50, 3 * n + 2).astype(np.int64))
+    uniq, first = dp.first_occurrence(keys)
+    probe = torch.from_numpy(rng.integers(-60, 60, n).astype(np.int64))
+    probe[: min(n, 2)] = torch.tensor([I64MAX, I64MIN][: min(n, 2)])
+    for u in (uniq, uniq[:1], torch.cat([uniq, torch.tensor([I64MAX])])):
+        same_bits(dp.probe_sorted(u, probe),
+                  dp.probe_sorted(u.to(dev), probe.to(dev)), f"L={len(u)}")
+    same_bits(dp.first_occurrence(keys), dp.first_occurrence(keys.to(dev)))
+
+
+def test_empty_inputs_launch_nothing(dev):
+    dp.reset_launches()
+    e32 = torch.empty(0, dtype=torch.float32, device=dev)
+    e64 = torch.empty(0, dtype=torch.int64, device=dev)
+    assert dp.filter_mask(e32, 0.0).shape == (0,)
+    assert dp.map_derived(e32, e32).shape == (0,)
+    assert dp.fixed_point_encode(e32, e64).shape == (0,)
+    hit, pos = dp.probe_sorted(e64, torch.arange(3, device=dev))
+    assert not hit.any() and (pos == 0).all() and hit.is_cuda
+    assert all(v == 0 for v in dp.launches.values())
+
+
+def test_wrappers_raise_instead_of_falling_back(dev):
+    col = torch.zeros(8, dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        dp.filter_mask(col[::2], 0.0)
+    with pytest.raises(TypeError):
+        dp.filter_mask(col.to(torch.int32), 0.0)
+    with pytest.raises(ValueError, match="1-D"):
+        dp.map_derived(col.reshape(2, 4), None)
+    with pytest.raises(ValueError, match="lengths"):
+        dp.map_derived(col, col[:4])
+    with pytest.raises(TypeError):
+        dp.probe_sorted(col, col)
+    with pytest.raises(ValueError, match="device"):
+        dp.map_derived(col, col.cpu())
+
+
+def test_small_round_card_equals_cpu(dev, tmp_path):
+    stores = {}
+    for device in ("cuda", "cpu"):
+        wl = mv.realize_workload(mv.generate_workload(12, seed=4),
+                                 bytes_per_root=1 << 16, device=device)
+        wl = mv.calibrate_sizes(wl, mv.DiskStore(tmp_path / f"c_{device}",
+                                                 device=device))
+        graph = wl.to_graph()
+        budget = sum(graph.sizes) * 0.4
+        store = mv.DiskStore(tmp_path / device, device=device)
+        rep = mv.Controller(wl, store, budget).run(core.solve(graph, budget))
+        assert rep.peak_catalog_bytes <= budget
+        stores[device] = (wl, store)
+    wl, card = stores["cuda"]
+    for node in wl.nodes:
+        got = card.read(node.name)
+        assert all(v.is_cuda for v in got.values())
+        T.assert_tables_bitwise(stores["cpu"][1].read(node.name), got, node.name)

@@ -1,0 +1,102 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points default to the card and refuse to run without one, and on CPU
+tensors it never reaches a CUDA kernel."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import convert
+from repro_torch.mv import dataplane as dp
+from repro_torch.mv import tableops as T
+from repro_torch.mv import workloads as W
+from repro_torch.mv.storage import DiskStore
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([str(PKG)], prefix="repro_torch.")
+    )
+
+
+def test_importing_every_module_loads_neither_jax_nor_repro():
+    mods = port_modules()
+    assert "repro_torch.mv.dataplane" in mods and len(mods) >= 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
+    + ["chip_smoke.py"],
+)
+def test_no_jax_or_repro_import_in_source(path):
+    roots = _imported_roots(ROOT / path)
+    assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda tmp: W.realize_workload(W.generate_workload(4, seed=1)),
+    lambda tmp: T.make_base_table(10, 3, seed=0),
+    lambda tmp: T.empty_like({"key": torch.int64}),
+    lambda tmp: DiskStore(tmp / "store"),
+    lambda tmp: convert.table_from_numpy({"key": np.arange(3)}),
+], ids=["realize_workload", "make_base_table", "empty_like", "DiskStore",
+        "table_from_numpy"])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path,
+                                                           monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry(tmp_path)
+
+
+def test_cpu_tensors_never_launch_a_kernel():
+    dp.reset_launches()
+    base = T.make_base_table(2000, 4, seed=3, rid_base=0, device="cpu")
+    right = T.make_base_table(500, 3, seed=4, rid_base=1 << 40, device="cpu")
+    joined = T.op_join(T.op_map(base), right)
+    T.op_agg(T.op_filter(joined, "c0", 0.1))
+    T.merge_agg(T.op_agg(base), T.op_agg(T.with_weight(base, -1)))
+    assert set(dp.launches) == set(dp.KERNELS)
+    assert all(v == 0 for v in dp.launches.values()), dp.launches
+
+
+def test_wrappers_refuse_other_devices():
+    meta = torch.empty(4, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        dp.filter_mask(meta, 0.0)
+    with pytest.raises(ValueError, match="device"):
+        dp.map_derived(meta, torch.zeros(4))
+
+
+def test_package_has_a_version():
+    assert repro_torch.__version__
