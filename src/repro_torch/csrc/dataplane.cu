@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the S/C refresh data plane.
 //
-// Four kernels, each the counterpart of Pallas kernels in the JAX package's
+// Six kernels, each the counterpart of Pallas kernels in the JAX package's
 // src/repro/mv/dataplane.py (inside _pk()). Each computes exactly what the
 // numpy reference path of that module computes, bit for bit; none is a
 // block-by-block copy of the TPU kernel. Plain PyTorch versions of the same
@@ -15,12 +15,14 @@
 // ctypes. Each launches on the caller's stream, never synchronises, and
 // returns cudaGetLastError() so a refused launch reaches the caller.
 //
-// All four are memory-bound elementwise passes (a handful of operations per
-// 5-20 bytes moved, far below the card's ~20 flop/byte f64 ridge). Their
-// bound on an H100 is the bytes each must move over 3.35 TB/s. The design
-// answer is the same for all four: one thread per row in a grid-stride loop,
-// neighbouring threads on neighbouring addresses so every warp access is a
-// fully coalesced 128-byte line, no shared memory, no second pass.
+// The first four are memory-bound elementwise passes (a handful of
+// operations per 5-20 bytes moved, far below the card's ~20 flop/byte f64
+// ridge). Their bound on an H100 is the bytes each must move over 3.35 TB/s.
+// The design answer is the same for all four: one thread per row in a
+// grid-stride loop, neighbouring threads on neighbouring addresses so every
+// warp access is a fully coalesced 128-byte line, no shared memory, no
+// second pass. The two hash kernels (5, 6) keep that shape and add integer
+// work: see their notes for which bound holds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -172,6 +174,109 @@ __global__ void probe_kernel(const long long* __restrict__ uniq, long long L,
   }
 }
 
+// ---------------------------------------------------------------------------
+// 5-6. splitmix64 hashing and the fused partition histogram.
+//    The splitmix64 finalizer on the int64 key's bit pattern, in unsigned
+//    64-bit arithmetic: shifts are logical and multiplies wrap mod 2^64, as
+//    numpy's uint64 does, so nothing needs emulating. One device function
+//    serves both kernels.
+//    Integer operations per row, counted as 32-bit instructions (the units
+//    the card's int32 rate counts): three 64-bit shift+xor steps (2 funnel
+//    shifts + 2 logic ops each) and two 64-bit multiplies by a constant (3
+//    multiply-adds each): 18.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ unsigned long long splitmix64(unsigned long long x) {
+  x ^= x >> 30;
+  x *= 0xBF58476D1CE4E5B9ULL;
+  x ^= x >> 27;
+  x *= 0x94D049BB133111EBULL;
+  x ^= x >> 31;
+  return x;
+}
+
+// 5. hash64: out[i] = splitmix64(uint64(keys[i])).
+//    Replaces hash_kernel (src/repro/mv/dataplane.py:300-306, launched
+//    through _ew_call at :290). Bound: reads 8 and writes 8 bytes per row
+//    (16n bytes) against 18 integer operations per row; on an H100 the
+//    bytes bound is the larger (see PERF.md).
+__global__ void hash64_kernel(const long long* __restrict__ keys,
+                              unsigned long long* __restrict__ out, long long n) {
+  GRID_STRIDE_LOOP(i, n) {
+    out[i] = splitmix64(static_cast<unsigned long long>(keys[i]));
+  }
+}
+
+// 6. pid_hist: pid[i] = splitmix64(uint64(keys[i])) % P, and hist[p] = the
+//    number of rows with pid p, in one pass.
+//    Replaces pid_hist.kernel (src/repro/mv/dataplane.py:325-343,
+//    pallas_call at :345). The Pallas kernel carries the histogram across
+//    its sequential grid in one VMEM block; H100 blocks run in parallel and
+//    in no order, so each block counts into its own histogram and adds it
+//    into the int64 global one with one atomic per non-empty bucket. Counts
+//    are integers, so the order of the atomics cannot change them.
+//    * P <= kSharedHistMax: the block histogram is 32-bit counters in
+//      shared memory (32 KB at the limit). A block counts at most
+//      n / gridDim rows, far below 2^32 for any n this card can hold.
+//    * larger P: each row's count goes straight to the global histogram
+//      with a 64-bit atomic, inside the same kernel.
+//    Skew: with Zipf-distributed keys most rows of a warp hit one bucket,
+//    and their atomics on it would serialise. Lanes are grouped by bucket
+//    with __match_any_sync first, and one lane per group adds the group's
+//    size, so a warp issues at most one atomic per distinct bucket.
+//    The loop steps whole blocks at a time (its bound is block-uniform), so
+//    every warp reaches the full-mask match together; lanes past n take a
+//    key no bucket can have.
+//    Bound: reads 8 and writes 8 bytes per row plus 8P for the histogram,
+//    against 18 hash operations, the 64-bit remainder (no divide
+//    instruction: a software routine) and the match per row; PERF.md says
+//    which bound holds.
+constexpr unsigned long long kSharedHistMax = 8192;
+// Blocks per SM for pid_hist: enough rows per block that the flush of a
+// block histogram (up to P atomics) stays small next to its rows.
+constexpr long long kHistMaxBlocks = 132LL * 8;
+
+template <bool kShared>
+__global__ void pid_hist_kernel(const long long* __restrict__ keys,
+                                unsigned long long P,
+                                long long* __restrict__ pid,
+                                unsigned long long* __restrict__ hist,
+                                long long n) {
+  extern __shared__ unsigned int local[];
+  if (kShared) {
+    for (unsigned b = threadIdx.x; b < P; b += blockDim.x) local[b] = 0u;
+    __syncthreads();
+  }
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long base = blockIdx.x * (long long)blockDim.x; base < n;
+       base += stride) {
+    const long long i = base + threadIdx.x;
+    const bool valid = i < n;
+    unsigned long long p = 0;
+    if (valid) {
+      p = splitmix64(static_cast<unsigned long long>(keys[i])) % P;
+      pid[i] = static_cast<long long>(p);
+    }
+    // P < 2^31, so 0xFFFFFFFF is no bucket: idle lanes group apart.
+    const unsigned tag = valid ? static_cast<unsigned>(p) : 0xFFFFFFFFu;
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, tag);
+    if (valid && (threadIdx.x & 31u) == static_cast<unsigned>(__ffs(peers) - 1)) {
+      const unsigned c = static_cast<unsigned>(__popc(peers));
+      if (kShared) {
+        atomicAdd(local + p, c);
+      } else {
+        atomicAdd(hist + p, static_cast<unsigned long long>(c));
+      }
+    }
+  }
+  if (kShared) {
+    __syncthreads();
+    for (unsigned b = threadIdx.x; b < P; b += blockDim.x) {
+      const unsigned c = local[b];
+      if (c) atomicAdd(hist + b, static_cast<unsigned long long>(c));
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -262,6 +367,33 @@ int sc_probe_sorted(const long long* uniq, long long n_uniq,
   if (n <= 0 || n_uniq <= 0) return 0;
   probe_kernel<<<blocks_for(n), kThreads, 0, stream>>>(uniq, n_uniq, probe, hit,
                                                         pos, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sc_hash64(const long long* keys, unsigned long long* out, long long n,
+              cudaStream_t stream) {
+  if (n <= 0) return 0;
+  hash64_kernel<<<blocks_for(n), kThreads, 0, stream>>>(keys, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hist holds P int64 counters; it is zeroed on the stream before the launch.
+// 1 < P < 2^31 (the wrapper checks).
+int sc_pid_hist(const long long* keys, long long P, long long* pid,
+                long long* hist, long long n, cudaStream_t stream) {
+  if (n <= 0 || P <= 1) return 0;
+  cudaError_t err = cudaMemsetAsync(hist, 0, sizeof(long long) * P, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long p = static_cast<unsigned long long>(P);
+  long long b = (n + kThreads - 1) / kThreads;
+  const unsigned g = static_cast<unsigned>(b < kHistMaxBlocks ? b : kHistMaxBlocks);
+  auto* h = reinterpret_cast<unsigned long long*>(hist);
+  if (p <= kSharedHistMax) {
+    pid_hist_kernel<true><<<g, kThreads, sizeof(unsigned int) * p, stream>>>(
+        keys, p, pid, h, n);
+  } else {
+    pid_hist_kernel<false><<<g, kThreads, 0, stream>>>(keys, p, pid, h, n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

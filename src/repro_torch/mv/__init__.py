@@ -1,10 +1,34 @@
 """S/C materialization engine on PyTorch: the data plane and its CUDA
-kernels, the table operators, the Memory Catalog, storage, the Controller
-and the refresh engine."""
+kernels, the table operators, the Memory Catalog, storage, the Controller,
+the refresh engine and simulator, and the incremental and hash-partitioned
+(full-vs-incremental update) refresh subsystem."""
 from . import dataplane
 from .catalog import CatalogOverflowError, MemoryCatalog
 from .engine import ScheduleCore, ThreadedEngine, simulate_events
 from .executor import Controller, InjectedCrash, RunReport, calibrate_sizes
+from .incremental import (
+    FallbackRateEwma,
+    IncrementalEngine,
+    RoundReport,
+    ScenarioReport,
+    SimScenarioReport,
+    run_scenario,
+    simulate_scenario,
+    verify_scenario_equivalence,
+)
+from .partition import (
+    PartitionMap,
+    PartitionedScenarioReport,
+    concat_partitions,
+    dirty_partitions,
+    hierarchical_round_solver,
+    partition_of,
+    partition_table,
+    partition_workload,
+    run_partitioned_scenario,
+    verify_partitioned_equivalence,
+)
+from .simulator import SimReport, simulate, speedup
 from .storage import DiskStore, partition_entry_name, table_nbytes
 from .workloads import (
     MVNode,
@@ -26,6 +50,16 @@ __all__ = [
     "DiskStore",
     "table_nbytes",
     "partition_entry_name",
+    "PartitionMap",
+    "PartitionedScenarioReport",
+    "concat_partitions",
+    "dirty_partitions",
+    "partition_of",
+    "partition_table",
+    "partition_workload",
+    "hierarchical_round_solver",
+    "run_partitioned_scenario",
+    "verify_partitioned_equivalence",
     "Controller",
     "RunReport",
     "InjectedCrash",
@@ -33,6 +67,17 @@ __all__ = [
     "ScheduleCore",
     "ThreadedEngine",
     "simulate_events",
+    "FallbackRateEwma",
+    "IncrementalEngine",
+    "RoundReport",
+    "ScenarioReport",
+    "SimScenarioReport",
+    "run_scenario",
+    "simulate_scenario",
+    "verify_scenario_equivalence",
+    "simulate",
+    "speedup",
+    "SimReport",
     "Workload",
     "MVNode",
     "UpdateSpec",

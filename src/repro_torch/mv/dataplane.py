@@ -17,15 +17,19 @@ Kernels, each with its plain version beside it and a launch counter
 * ``fixed_point_encode``  — AGG's ``rint(f64(v)·2^16)`` (times the Z-set
                             weight, wrapping mod 2^64);
 * ``probe_sorted``        — JOIN's searchsorted-left probe, clipped, with
-                            the hit test at the clipped position.
+                            the hit test at the clipped position;
+* ``hash64``              — the splitmix64 finalizer, ``uint64`` out;
+* ``pid_hist``            — splitmix64 ``% P`` per row plus the P-bucket
+                            histogram in one pass (``partition_ids``,
+                            ``partition_index``).
 
-``group_reduce``'s grouping and ``first_occurrence``'s stable sort have no
-kernel in the reference either; they are PyTorch sorts, ``unique`` and
-integer ``index_add_`` on the tensor's device (integer sums are exact in any
-order). ``hash64`` / ``partition_ids`` / ``partition_index`` are plain
-PyTorch here: torch has no ``>>`` or ``%`` on ``uint64``, so the splitmix64
-finalizer runs on int64 with logical shifts emulated by masking and the
-modulus taken on 32-bit halves.
+The plain versions of the two hash kernels run on int64, since torch has no
+``>>`` or ``%`` on ``uint64``: logical shifts are emulated by masking and
+the modulus is taken on 32-bit halves. ``group_reduce``'s grouping,
+``first_occurrence``'s stable sort and ``partition_index``'s stable
+grouping permutation have no kernel in the reference either; they are
+PyTorch sorts, ``unique`` and integer ``index_add_`` on the tensor's device
+(integer sums are exact in any order).
 
 Wrappers launch on ``torch.cuda.current_stream()`` and never synchronise.
 """
@@ -39,6 +43,7 @@ import torch
 
 __all__ = [
     "hash64",
+    "pid_hist",
     "partition_ids",
     "partition_index",
     "filter_mask",
@@ -48,6 +53,7 @@ __all__ = [
     "first_occurrence",
     "probe_sorted",
     "launches",
+    "variant_launches",
     "reset_launches",
     "AGG_QUANTUM",
 ]
@@ -66,21 +72,28 @@ _MAP_C = float(np.float32(1.0001))
 # Launch counters and the CUDA library
 # ---------------------------------------------------------------------------
 
-KERNELS = ("filter_gt", "map_derived", "fixed_point_encode", "probe_sorted")
+KERNELS = ("filter_gt", "map_derived", "fixed_point_encode", "probe_sorted",
+           "hash64", "pid_hist")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# Launches of one instantiation within a kernel's count: the weighted
+# (Z-set) encode runs only on incremental rounds.
+variant_launches: dict[str, int] = {"fixed_point_encode/weighted": 0}
 _count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     """Set every kernel's launch counter to 0."""
     with _count_lock:
-        for k in launches:
-            launches[k] = 0
+        for counts in (launches, variant_launches):
+            for k in counts:
+                counts[k] = 0
 
 
-def _count(kernel: str) -> None:
+def _count(kernel: str, variant: str | None = None) -> None:
     with _count_lock:
         launches[kernel] += 1
+        if variant is not None:
+            variant_launches[f"{kernel}/{variant}"] += 1
 
 
 _lib_lock = threading.Lock()
@@ -103,6 +116,8 @@ def _lib() -> ctypes.CDLL:
                 "sc_map_derived": [P, I, P, I, P, N, S],
                 "sc_fixed_point_encode": [P, I, P, P, N, S],
                 "sc_probe_sorted": [P, N, P, P, P, N, S],
+                "sc_hash64": [P, P, N, S],
+                "sc_pid_hist": [P, N, P, P, N, S],
             }
             for fn, argtypes in sigs.items():
                 getattr(lib, fn).argtypes = argtypes
@@ -111,15 +126,16 @@ def _lib() -> ctypes.CDLL:
         return _lib_handle[0]
 
 
-def _launch(kernel: str, fn: str, device: torch.device, *args) -> None:
+def _launch(kernel: str, fn: str, device: torch.device, *args,
+            variant: str | None = None) -> None:
     """Call one C entry point on ``device``'s current stream; raise when the
-    launch reports an error, count it otherwise."""
+    launch reports an error, count it (and its ``variant``) otherwise."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(_lib(), fn)(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
-    _count(kernel)
+    _count(kernel, variant)
 
 
 def _on_cpu(*tensors) -> bool:
@@ -149,7 +165,7 @@ def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
 
 
 # ---------------------------------------------------------------------------
-# splitmix64 hash / partitioning (plain PyTorch; int64 emulation of uint64)
+# splitmix64 hash / partitioning
 # ---------------------------------------------------------------------------
 
 def _signed(c: int) -> int:
@@ -174,11 +190,6 @@ def _hash64_i64(keys: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def hash64(keys: torch.Tensor) -> torch.Tensor:
-    """splitmix64 finalizer as ``uint64`` — bitwise the reference's."""
-    return _hash64_i64(keys).view(torch.uint64)
-
-
 def _umod(x: torch.Tensor, P: int) -> torch.Tensor:
     """``uint64(x) % P`` for int64 bit patterns and 1 <= P < 2^31, on 32-bit
     halves so every intermediate stays a non-negative int64."""
@@ -187,28 +198,96 @@ def _umod(x: torch.Tensor, P: int) -> torch.Tensor:
     return ((hi % P) * ((1 << 32) % P) + lo % P) % P
 
 
-def partition_ids(keys: torch.Tensor, n_partitions: int) -> torch.Tensor:
-    """Partition id of each key: ``splitmix64(key) % P`` (0 when P=1)."""
+def _pid_plain(keys: torch.Tensor, P: int) -> torch.Tensor:
+    return _umod(_hash64_i64(keys), P)
+
+
+def _pid_hist_plain(keys: torch.Tensor,
+                    P: int) -> tuple[torch.Tensor, torch.Tensor]:
+    pid = _pid_plain(keys, P)
+    return pid, torch.bincount(pid, minlength=P).to(torch.int64)
+
+
+def _hash_keys(name: str, keys: torch.Tensor) -> torch.Tensor:
+    keys = keys if keys.dtype == torch.int64 else keys.to(torch.int64)
+    _check_1d(name, keys, (torch.int64,))
+    return keys
+
+
+def _hash_cuda(keys: torch.Tensor) -> torch.Tensor:
+    keys = _hash_keys("hash64", keys)
+    out = torch.empty(len(keys), dtype=torch.uint64, device=keys.device)
+    if len(keys) == 0:
+        return out
+    _launch("hash64", "sc_hash64", keys.device, _ptr(keys), _ptr(out),
+            ctypes.c_longlong(len(keys)))
+    return out
+
+
+def _pid_hist_cuda(keys: torch.Tensor,
+                   P: int) -> tuple[torch.Tensor, torch.Tensor]:
+    keys = _hash_keys("pid_hist", keys)
+    pid = torch.empty(len(keys), dtype=torch.int64, device=keys.device)
+    if len(keys) == 0:
+        return pid, torch.zeros(P, dtype=torch.int64, device=keys.device)
+    hist = torch.empty(P, dtype=torch.int64, device=keys.device)
+    _launch("pid_hist", "sc_pid_hist", keys.device, _ptr(keys),
+            ctypes.c_longlong(P), _ptr(pid), _ptr(hist),
+            ctypes.c_longlong(len(keys)))
+    return pid, hist
+
+
+def _n_partitions(n_partitions: int) -> int:
     P = max(int(n_partitions), 1)
-    if P == 1:
-        return torch.zeros(len(keys), dtype=torch.int64, device=keys.device)
     if P >= 1 << 31:
         raise ValueError(f"n_partitions={P} must be < 2^31")
-    return _umod(_hash64_i64(keys), P)
+    return P
+
+
+def hash64(keys: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer as ``uint64`` — bitwise the reference's."""
+    if _on_cpu(keys):
+        return _hash64_i64(keys).view(torch.uint64)
+    return _hash_cuda(keys)
+
+
+def pid_hist(keys: torch.Tensor,
+             n_partitions: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(pid, counts)`` of a P-way hash split, 1 < P < 2^31: ``pid[i] =
+    splitmix64(keys[i]) % P`` and ``counts[p]`` the number of rows with pid
+    ``p``, in one pass on the card."""
+    P = _n_partitions(n_partitions)
+    if P == 1:
+        raise ValueError("pid_hist needs n_partitions > 1")
+    if _on_cpu(keys):
+        return _pid_hist_plain(keys, P)
+    return _pid_hist_cuda(keys, P)
+
+
+def partition_ids(keys: torch.Tensor, n_partitions: int) -> torch.Tensor:
+    """Partition id of each key: ``splitmix64(key) % P`` (0 when P=1). On
+    the card it is ``pid_hist`` with the counts dropped, as the reference's
+    Pallas path does."""
+    P = _n_partitions(n_partitions)
+    if P == 1:
+        return torch.zeros(len(keys), dtype=torch.int64, device=keys.device)
+    if _on_cpu(keys):
+        return _pid_plain(keys, P)
+    return _pid_hist_cuda(keys, P)[0]
 
 
 def partition_index(keys: torch.Tensor,
                     n_partitions: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Grouped row index of a P-way hash split: ``(order, counts)``, with
     ``order`` the stable partition-major permutation and ``counts[p]``
-    partition p's row count."""
-    P = max(int(n_partitions), 1)
+    partition p's row count. The grouping is a stable sort of the pids, as
+    the reference groups outside its kernels too."""
+    P = _n_partitions(n_partitions)
     n = len(keys)
     if P == 1:
         return (torch.arange(n, dtype=torch.int64, device=keys.device),
                 torch.tensor([n], dtype=torch.int64, device=keys.device))
-    pid = partition_ids(keys, P)
-    counts = torch.bincount(pid, minlength=P).to(torch.int64)
+    pid, counts = pid_hist(keys, P)
     order = torch.sort(pid, stable=True).indices
     return order, counts
 
@@ -343,7 +422,8 @@ def _encode_cuda(values: torch.Tensor,
         return out
     _launch("fixed_point_encode", "sc_fixed_point_encode", values.device,
             _ptr(values), int(values.dtype == torch.float64), _ptr(weights),
-            _ptr(out), ctypes.c_longlong(len(values)))
+            _ptr(out), ctypes.c_longlong(len(values)),
+            variant=None if weights is None else "weighted")
     return out
 
 

@@ -64,6 +64,22 @@ class Controller:
         )
         return engine.run(plan, resume=resume, crash_after=crash_after)
 
+    def run_scenario(self, spec, cost_model, optimize: bool = True):
+        """Multi-round refresh under an ``UpdateSpec`` (full vs incremental
+        updates) — see ``mv.incremental.run_scenario``."""
+        from .incremental import run_scenario
+
+        return run_scenario(
+            self.workload,
+            self.store,
+            self.budget,
+            spec,
+            cost_model,
+            n_compute_workers=self.n_compute_workers,
+            n_writers=self.n_writers,
+            optimize=optimize,
+        )
+
 
 def calibrate_sizes(workload: Workload, store: DiskStore) -> Workload:
     """One observation run (the paper's 'execution metadata from past runs'):

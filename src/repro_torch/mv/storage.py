@@ -439,6 +439,17 @@ class DiskStore:
             for pid in self.partition_ids(name)
         }
 
+    def read_partitioned(self, name: str) -> dict[str, torch.Tensor]:
+        """Assemble the live content of a partitioned MV in canonical order
+        (``partition.concat_partitions``: stable rid order, key order for
+        rid-less aggregates) — bitwise-identical to the unpartitioned MV."""
+        from .partition import concat_partitions
+
+        ids = self.partition_ids(name)
+        if not ids:
+            return self.read(name)  # unpartitioned fallback
+        return concat_partitions([self.read_partition(name, p) for p in ids])
+
     def delete(self, name: str) -> None:
         with self._manifest_lock:
             m = dict(self._entries_locked())

@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card: each against the CPU path (the plain
 PyTorch versions, which ``tests/test_torch_dataplane.py`` holds against the
 JAX package) at ragged sizes, the wrappers' refusals, the launch counters,
-and a small refresh round card against CPU. Needs a card; every test skips
-without one:
+and a small refresh round and a small partitioned incremental scenario card
+against CPU. Needs a card; every test skips without one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -93,6 +93,27 @@ def test_probe_kernel_matches_cpu(dev, n):
     same_bits(dp.first_occurrence(keys), dp.first_occurrence(keys.to(dev)))
 
 
+@pytest.mark.parametrize("n", SIZES)
+def test_hash_kernels_match_cpu(dev, n):
+    """``hash64`` and ``pid_hist`` on uniform and Zipf-skewed keys, on both
+    sides of the shared-memory histogram limit (P <= 8192)."""
+    rng = np.random.default_rng(n)
+    uniform = rng.integers(I64MIN, I64MAX, n, dtype=np.int64, endpoint=True)
+    uniform[: min(n, 4)] = [I64MIN, I64MAX, -1, 0][: min(n, 4)]
+    for keys in (uniform, rng.zipf(1.3, n).astype(np.int64)):
+        k = torch.from_numpy(keys)
+        dp.reset_launches()
+        got = dp.hash64(k.to(dev))
+        assert got.dtype == torch.uint64 and dp.launches["hash64"] == 1
+        same_bits(dp.hash64(k).view(torch.int64), got.view(torch.int64))
+        for P in (2, 8, 4096, 8192, 8193, 100_003):
+            dp.reset_launches()
+            same_bits(dp.pid_hist(k, P), dp.pid_hist(k.to(dev), P), f"P={P}")
+            same_bits(dp.partition_index(k, P), dp.partition_index(k.to(dev), P))
+            same_bits(dp.partition_ids(k, P), dp.partition_ids(k.to(dev), P))
+            assert dp.launches["pid_hist"] == 3, P
+
+
 def test_empty_inputs_launch_nothing(dev):
     dp.reset_launches()
     e32 = torch.empty(0, dtype=torch.float32, device=dev)
@@ -102,6 +123,10 @@ def test_empty_inputs_launch_nothing(dev):
     assert dp.fixed_point_encode(e32, e64).shape == (0,)
     hit, pos = dp.probe_sorted(e64, torch.arange(3, device=dev))
     assert not hit.any() and (pos == 0).all() and hit.is_cuda
+    assert dp.hash64(e64).shape == (0,)
+    assert dp.partition_ids(e64, 8).shape == (0,)
+    order, counts = dp.partition_index(e64, 8)
+    assert order.shape == (0,) and counts.tolist() == [0] * 8 and counts.is_cuda
     assert all(v == 0 for v in dp.launches.values())
 
 
@@ -119,6 +144,13 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         dp.probe_sorted(col, col)
     with pytest.raises(ValueError, match="device"):
         dp.map_derived(col, col.cpu())
+    keys = torch.arange(16, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        dp.hash64(keys[::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        dp.partition_ids(keys[::2], 8)
+    with pytest.raises(ValueError, match="2\\^31"):
+        dp.partition_index(keys, 1 << 31)
 
 
 def test_small_round_card_equals_cpu(dev, tmp_path):
@@ -139,3 +171,30 @@ def test_small_round_card_equals_cpu(dev, tmp_path):
         got = card.read(node.name)
         assert all(v.is_cuda for v in got.values())
         T.assert_tables_bitwise(stores["cpu"][1].read(node.name), got, node.name)
+
+
+def test_small_partitioned_scenario_card_equals_cpu(dev, tmp_path):
+    spec = dict(mode="incremental", ingest_frac=0.1, update_frac=0.05,
+                delete_frac=0.02, n_rounds=2)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        wl = mv.realize_workload(mv.generate_workload(12, seed=4),
+                                 bytes_per_root=1 << 16, device=device)
+        budget = sum(n.size for n in wl.nodes) * 0.4
+        store = mv.DiskStore(tmp_path / device, device=device)
+        dp.reset_launches()
+        rep = mv.run_partitioned_scenario(wl, 8, store, budget,
+                                          mv.UpdateSpec(**spec),
+                                          core.PAPER_COST_MODEL)
+        runs[device] = (wl, store, rep, dict(dp.launches),
+                        dict(dp.variant_launches))
+    wl, card, rep, launches, variants = runs["cuda"]
+    assert launches["pid_hist"] > 0
+    assert variants["fixed_point_encode/weighted"] > 0
+    for a, b in zip(runs["cpu"][2].rounds, rep.rounds):
+        assert (a.plan.order, a.plan.flagged, a.statuses, a.run.skipped) == \
+            (b.plan.order, b.plan.flagged, b.statuses, b.run.skipped)
+    assert all(v == 0 for v in runs["cpu"][3].values())
+    assert card.manifest() == runs["cpu"][1].manifest()
+    for name in card.manifest():
+        T.assert_tables_bitwise(runs["cpu"][1].read(name), card.read(name), name)

@@ -68,6 +68,52 @@ def test_partition_ids_full_int64_range(P):
                    dp.partition_ids(tt(keys), P), f"pid P={P}")
 
 
+def zipf_keys(n, a, seed):
+    """Zipf(a)-skewed int64 keys: most rows share a few hot keys."""
+    return np.random.default_rng(seed).zipf(a, n).astype(np.int64)
+
+
+@pytest.mark.parametrize("impl", KERNEL_IMPLS)
+@pytest.mark.parametrize("P", [8, 4096, 100_003])
+@pytest.mark.parametrize("skew", [0.0, 1.3])
+def test_pid_hist_pids_counts_and_order_bitwise(impl, P, skew):
+    """``pid_hist``'s per-row pids and histogram, and ``partition_index``'s
+    grouping, against the reference's fused Pallas kernel (interpret) and
+    its numpy path, on uniform and Zipf-skewed keys."""
+    rng = np.random.default_rng(P)
+    keys = zipf_keys(6000, skew, P) if skew else \
+        rng.integers(I64MIN, I64MAX, 6000, dtype=np.int64, endpoint=True)
+    keys[:4] = [0, -1, I64MAX, I64MIN]
+    ref_order, ref_counts = ref_call(impl, rdp.partition_index, keys, P)
+    ref_pid = ref_call(impl, rdp.partition_ids, keys, P)
+    pid, counts = dp.pid_hist(tt(keys), P)
+    assert_bitwise((ref_pid, ref_counts), (pid, counts), f"pid_hist/{impl}")
+    assert_bitwise((ref_order, ref_counts), dp.partition_index(tt(keys), P),
+                   f"index/{impl}")
+    if skew:
+        assert int(counts.max()) > 2 * 6000 / min(P, 6000)
+
+
+@pytest.mark.parametrize("P", [(1 << 31) - 1, (1 << 31) - 2, (1 << 30) + 3,
+                               100_003])
+def test_partition_ids_near_2_31_on_zipf_keys(P):
+    keys = zipf_keys(5000, 1.3, P % 97)
+    keys[:2] = [I64MAX, I64MIN]
+    assert_bitwise(rdp.partition_ids(keys, P, impl="numpy"),
+                   dp.partition_ids(tt(keys), P), f"pid P={P}")
+
+
+def test_partition_count_out_of_range_raises():
+    keys = tt(np.arange(10, dtype=np.int64))
+    for fn in (dp.partition_ids, dp.partition_index, dp.pid_hist):
+        with pytest.raises(ValueError, match="2\\^31"):
+            fn(keys, 1 << 31)
+    with pytest.raises(ValueError, match="> 1"):
+        dp.pid_hist(keys, 1)
+    assert dp.partition_ids(keys, 0).tolist() == [0] * 10
+    assert dp.partition_index(keys, 1)[1].tolist() == [10]
+
+
 # The reference's Pallas compare casts the threshold to an integer column's
 # own dtype (cmp_kernel_factory), where its numpy path compares in float64;
 # the two disagree for a fractional negative threshold. The numpy path is

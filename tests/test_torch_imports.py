@@ -17,6 +17,7 @@ from repro_torch import convert
 from repro_torch.mv import dataplane as dp
 from repro_torch.mv import tableops as T
 from repro_torch.mv import workloads as W
+from repro_torch.mv.partition import partition_table
 from repro_torch.mv.storage import DiskStore
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -86,8 +87,11 @@ def test_cpu_tensors_never_launch_a_kernel():
     joined = T.op_join(T.op_map(base), right)
     T.op_agg(T.op_filter(joined, "c0", 0.1))
     T.merge_agg(T.op_agg(base), T.op_agg(T.with_weight(base, -1)))
+    partition_table(base, 8)
+    dp.hash64(base["key"])
     assert set(dp.launches) == set(dp.KERNELS)
     assert all(v == 0 for v in dp.launches.values()), dp.launches
+    assert all(v == 0 for v in dp.variant_launches.values())
 
 
 def test_wrappers_refuse_other_devices():
