@@ -9,10 +9,15 @@ Phases, in order; any failure raises and exits non-zero:
 1. card    — the card's name and power limit (``nvidia-smi``);
 2. build   — ``nvcc`` for every CUDA source of the port, all in parallel;
 3. kernels — each hand-written kernel against its plain PyTorch version on
-             the card, bitwise, at the main path's shapes (16,777,216 rows;
-             a 4,194,304-key join index; P = 8 partitions, and P = 4096 and
-             100,003 across the shared-memory histogram limit, on uniform
-             and Zipf(1.3) keys), with edge cases; kernel, plain and
+             the card: the data-plane kernels bitwise at the main path's
+             shapes (16,777,216 rows; a 4,194,304-key join index; P = 8
+             partitions, and P = 4096 and 100,003 across the shared-memory
+             histogram limit, on uniform and Zipf(1.3) keys), with edge
+             cases; RMSNorm (with and without residual) and the
+             flash-attention forward within the JAX kernel tests'
+             tolerances at the serving path's shapes (rows of 5120;
+             b 4, 32 query over 8 kv heads, 544 positions, head dim 160),
+             f32 and bf16, with ragged and sq != sk cases; kernel, plain and
              library-call times from CUDA events;
 4. main    — one S/C refresh round: ``generate_workload(12, seed=4)``
              realized at 512 MiB per root on the card, calibrated, solved
@@ -32,8 +37,22 @@ Phases, in order; any failure raises and exits non-zero:
              the card and on the CPU (plain versions): every stored MV and
              partition bitwise equal, and both partitioned stores equal to
              a full-recompute scenario on the card;
-7. a JSON line listing every kernel with its launches over every path,
-   its times and its bound; then the JSON result line.
+7. serve   — stablelm-12b at full width and depth (40 layers, bf16,
+             random weights from a seeded generator on the card) answers 4
+             requests of 512-token prompts with 32 greedy tokens each
+             through ``greedy_generate``: RMSNorm must launch 81 times per
+             forward, its residual variant and the flash kernel never (as
+             in the JAX path); a
+             prefill and a window of decode steps under ``torch.profiler``
+             give the device's busy share and top kernels. Then the
+             serving oracle at full width in f32, depth cut to 2 layers:
+             prefill + teacher-forced decode logits against the
+             cache-less forward (which runs the flash kernel) within 2e-2;
+             then reduced stablelm-12b with GQA in f32, card against CPU:
+             the same greedy tokens, logits within 1e-4;
+8. a JSON line listing every kernel with its launches over every path,
+   its times, its bound and its worst error over its cases; then the JSON
+   result line.
 
 Exits with 2, printing no result, when CUDA is unavailable or the port's
 sources are not beside this script.
@@ -58,6 +77,7 @@ MAIN_BYTES_PER_ROOT = 512 << 20
 MAIN_BUDGET = 1.6e9           # the paper's Memory Catalog
 SMALL_BYTES_PER_ROOT = 4 << 20
 PEAK_FLOPS = 67e12            # f32 outside the tensor cores, H100 SXM
+PEAK_BF16_FLOPS = 989e12      # bf16 tensor cores, dense, H100 SXM
 ISSUE_PER_SM = 128            # 4 warp schedulers x 32 lanes per clock
 I64MAX = (1 << 63) - 1
 I64MIN = -(1 << 63)
@@ -84,7 +104,27 @@ REPLACES = {
     "hash64": "src/repro/mv/dataplane.py:300",
     "pid_hist": "src/repro/mv/dataplane.py:325",
 }
+REPLACES.update({
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:17",
+    "rmsnorm_residual": "src/repro/kernels/rmsnorm.py:25",
+    "flash_fwd": "src/repro/kernels/flash_attention.py:41",
+})
 SOURCE = "src/repro_torch/csrc/dataplane.cu"
+MODEL_SOURCES = {"rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
+                 "rmsnorm_residual": "src/repro_torch/csrc/rmsnorm.cu",
+                 "flash_fwd": "src/repro_torch/csrc/flash_attention.cu"}
+# The serving path: stablelm-12b at full width, 4 requests of 512-token
+# prompts, 32 new tokens each; the oracle cuts depth to 2 layers (f32).
+SERVE_ARCH = "stablelm-12b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 512, 32
+ORACLE_LAYERS = 2
+PROFILE_STEPS = 8             # decode steps in the serving profile window
+# Tolerances of the JAX kernel tests (tests/kernels/): one bf16 rounding of
+# the output, or f32 sums taken in another order.
+RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+ORACLE_TOL = 2e-2             # tests/models/test_decode.py
+CARD_CPU_LOGIT_TOL = 1e-4     # f32 on both sides, sums in another order
 
 
 def log(msg: str) -> None:
@@ -344,6 +384,249 @@ def check_grouping(torch, dp, keys, pid, case):
         f"ok; grouping torch.sort(pid, stable=True) ms={sort_ms}")
 
 
+def model_kernel_cases(torch, dev):
+    """(kernel, case, dtype, inputs, kernel fn, plain fn, library fn or None,
+    operations) for RMSNorm and the flash-attention forward at the serving
+    path's shapes, with inputs made on the card from a seeded generator."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref, rmsnorm as rn
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(shape, dtype, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for rows in (2048, 4):   # a 4x512-token prefill; a 4-request decode step
+            x = randn((rows, 5120), dtype)
+            r = randn((rows, 5120), dtype)
+            w = randn((5120,), dtype, 0.1, 1.0)
+            n = rows * 5120
+            cases.append(("rmsnorm", f"{rows}x5120_{dn}", dn, (x, w),
+                          lambda x=x, w=w: (rn.rmsnorm(x, w),),
+                          lambda x=x, w=w: (ref.rmsnorm(x, w),),
+                          lambda x=x, w=w: (F.rms_norm(x, (5120,), w, 1e-6),), 4 * n))
+            cases.append(("rmsnorm_residual", f"{rows}x5120_{dn}", dn, (x, r, w),
+                          lambda x=x, r=r, w=w: (rn.rmsnorm(x, w, residual=r),),
+                          lambda x=x, r=r, w=w: (ref.rmsnorm(x, w, residual=r),),
+                          None, 5 * n))
+        shapes = [  # (b, hq, hkv, sq, sk, d, causal)
+            (SERVE_BATCH, 32, 8, SERVE_PROMPT + SERVE_NEW, SERVE_PROMPT + SERVE_NEW,
+             160, True),
+            (SERVE_BATCH, 32, 8, 40, 72, 160, False),    # ragged, non-causal
+            (SERVE_BATCH, 32, 8, 100, 300, 160, True),   # causal, sq != sk
+            (1, 32, 8, 8, 0, 160, True),                 # no key: every row masked
+        ]
+        for b, hq, hkv, sq, sk, d, causal in shapes:
+            q = randn((b, hq, sq, d), dtype)
+            k = randn((b, hkv, sk, d), dtype)
+            v = randn((b, hkv, sk, d), dtype)
+            pairs = sum(min(i + 1, sk) if causal else sk for i in range(sq))
+            lib = None if sk == 0 else (
+                lambda q=q, k=k, v=v, c=causal: (F.scaled_dot_product_attention(
+                    q, k, v, is_causal=c, enable_gqa=True),))
+            cases.append((
+                "flash_fwd", f"{b}x{hq}/{hkv}x{sq}x{sk}x{d}"
+                f"{'_causal' if causal else ''}_{dn}", dn, (q, k, v),
+                lambda q=q, k=k, v=v, c=causal: fa.flash_attention_fwd(q, k, v, causal=c),
+                lambda q=q, k=k, v=v, c=causal: ref.attention_with_lse(q, k, v, causal=c),
+                lib, 4 * b * hq * pairs * d))
+    return cases
+
+
+def model_kernel_phase(torch, dev, bw):
+    """Hold RMSNorm and the flash forward against their plain versions
+    within the JAX kernel tests' tolerances (|got - want| <= tol + tol·|want|,
+    +inf lse on both sides where a row has no key); the flash forward's lse
+    must be finite on every row that has one. Operations count against the
+    f32 rate for f32 inputs and the bf16 tensor-core rate for bf16 ones."""
+    rows = []
+    for kernel, case, dn, inputs, kfn, pfn, lfn, ops in model_kernel_cases(torch, dev):
+        got, want = kfn(), pfn()
+        torch.cuda.synchronize()
+        tol = (ATTN_TOL if kernel == "flash_fwd" else RMS_TOL)[dn]
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or g.shape != w.shape or not bool(torch.isclose(
+                    g.float(), w.float(), rtol=tol, atol=tol).all()):
+                raise AssertionError(f"{kernel}/{case}: kernel differs from plain "
+                                     f"beyond {tol}")
+        if kernel == "flash_fwd":
+            lse = got[1]
+            if inputs[1].shape[2] > 0 and not bool(torch.isfinite(lse).all()):
+                raise AssertionError(f"{kernel}/{case}: non-finite lse on a real row")
+            if inputs[1].shape[2] == 0 and not (bool(torch.isposinf(lse).all())
+                                                and not bool(got[0].any())):
+                raise AssertionError(f"{kernel}/{case}: a row with no key must give "
+                                     "o = 0 and lse = +inf")
+        err = max_abs_err(torch, got, want)
+        nbytes = sum(t.nbytes for t in inputs) + sum(t.nbytes for t in got)
+        bytes_ms = nbytes / bw * 1e3
+        ops_ms = ops / (PEAK_BF16_FLOPS if dn == "bfloat16" else PEAK_FLOPS) * 1e3
+        row = dict(
+            kernel=kernel, case=case, max_abs_err=err,
+            ms=time_ms(torch, kfn), plain_ms=time_ms(torch, pfn),
+            library_ms=None if lfn is None else time_ms(torch, lfn),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bytes=nbytes,
+        )
+        rows.append(row)
+        log(f"kernel {kernel:<17} {case:<34} within {tol}  max_abs_err={err} "
+            f"ms={row['ms']} plain_ms={row['plain_ms']} "
+            f"library_ms={row['library_ms']} bound_ms={row['bound_ms']} "
+            f"({row['bound_by']}, {nbytes} B, bytes {bytes_ms} ms, "
+            f"{ops} ops {ops_ms} ms)")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serving
+# ---------------------------------------------------------------------------
+
+def log_breakdown(label, wall, by_name, per=1):
+    """The device's busy share of ``wall`` and the top kernels, each over
+    ``per`` steps."""
+    busy = sum(us for us, _ in by_name.values())
+    log(f"serve: profile {label}: wall {wall / per * 1e3:.3f} ms, device busy "
+        f"{busy / per / 1e3:.3f} ms, busy share {busy / (wall * 1e6):.4f}")
+    for k, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"serve:   {us / per / 1e3:9.4f} ms {count / per:8.1f}x  {k[:90]}")
+
+
+def serve_phase(torch, np, dev):
+    """stablelm-12b at full width and depth answers SERVE_BATCH requests;
+    then the full-width f32 oracle at ORACLE_LAYERS layers, and reduced GQA
+    card against CPU. Returns the launch counts of the two card paths, each
+    kernel's total and its variants' shares (``kernel/variant``)."""
+    import dataclasses as dc
+
+    from repro_torch import configs, models, serve
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = models.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, config counts {cfg.param_count()}")
+    log(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.head_dim_} d_ff {cfg.d_ff} "
+        f"vocab {cfg.vocab_size} {cfg.dtype}: {n_params} parameters, "
+        f"{sum(p.nbytes for p in model.parameters())} B, init "
+        f"{time.perf_counter() - t0:.3f}s")
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)))
+
+    def generate(max_new):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = serve.greedy_generate(cfg, model, prompt, max_new)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    generate(2)                                   # warm-up (cuBLAS, allocator)
+    _, prefill_s = generate(1)                    # prefill and one argmax
+    ops.reset_launches()
+    out, total_s = generate(SERVE_NEW)
+    serve_launches = {**ops.launches, **ops.variant_launches}
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = (total_s - prefill_s) / (SERVE_NEW - 1) * 1e3
+    if out.shape != (SERVE_BATCH, SERVE_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"generated tokens {tuple(out.shape)} out of range")
+    forwards = 1 + (SERVE_NEW - 1)
+    want = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards, "rmsnorm/residual": 0,
+            "flash_fwd": 0}
+    if serve_launches != want:
+        raise AssertionError(f"serving launches {serve_launches}, expected {want}")
+    log(f"serve: {SERVE_BATCH} requests x {SERVE_PROMPT}-token prompts, "
+        f"{SERVE_NEW} new tokens each: total {total_s:.4f}s, prefill "
+        f"{prefill_s:.4f}s, decode {decode_ms:.3f} ms/token (per step of "
+        f"{SERVE_BATCH}), {SERVE_BATCH * SERVE_NEW / total_s:.2f} tokens/s; "
+        f"max_memory_allocated {peak} B; launches {serve_launches}")
+    log(f"serve: sample {out[0, :12].tolist()}")
+    # where the time goes: the prefill alone, then prefill + PROFILE_STEPS
+    # decode steps; the decode step's kernels are the difference
+    pre_wall, pre, _ = device_kernel_times(
+        torch, lambda: serve.greedy_generate(cfg, model, prompt, 1))
+    both_wall, both, _ = device_kernel_times(
+        torch, lambda: serve.greedy_generate(cfg, model, prompt, 1 + PROFILE_STEPS))
+    dec = {k: (us - pre.get(k, (0.0, 0))[0], n - pre.get(k, (0.0, 0))[1])
+           for k, (us, n) in both.items()}
+    log_breakdown(f"prefill ({SERVE_BATCH} x {SERVE_PROMPT} tokens)", pre_wall, pre)
+    log_breakdown(f"decode step (mean of {PROFILE_STEPS})", both_wall - pre_wall,
+                  {k: v for k, v in dec.items() if v[0] > 0}, PROFILE_STEPS)
+    del model, out
+    torch.cuda.empty_cache()
+
+    # the serving oracle: prefill + teacher-forced decode against forward
+    t0 = time.perf_counter()
+    ocfg = dc.replace(cfg, n_layers=ORACLE_LAYERS, dtype="float32")
+    omodel = models.init_params(ocfg, torch.Generator(device=dev).manual_seed(1), dev)
+    total = SERVE_PROMPT + SERVE_NEW
+    tok = torch.from_numpy(np.random.default_rng(6).integers(
+        0, ocfg.vocab_size, (SERVE_BATCH, total))).to(dev)
+    ops.reset_launches()
+    with torch.inference_mode():
+        full, _, _ = models.forward(ocfg, omodel, tok)
+        cache = models.make_cache(ocfg, SERVE_BATCH, total, dev)
+        last, cache = models.prefill(ocfg, omodel, tok[:, :SERVE_PROMPT], cache)
+        worst = float((last - full[:, SERVE_PROMPT - 1]).abs().max())
+        ok = bool(torch.isclose(last, full[:, SERVE_PROMPT - 1], rtol=ORACLE_TOL,
+                                atol=ORACLE_TOL).all())
+        for t in range(SERVE_PROMPT, total):
+            step, cache = models.decode_step(ocfg, omodel, tok[:, t], cache, t)
+            worst = max(worst, float((step - full[:, t]).abs().max()))
+            ok = ok and bool(torch.isclose(step, full[:, t], rtol=ORACLE_TOL,
+                                           atol=ORACLE_TOL).all())
+    oracle_launches = {**ops.launches, **ops.variant_launches}
+    if not ok or not bool(torch.isfinite(full).all()):
+        raise AssertionError(f"serving oracle: prefill/decode logits differ from "
+                             f"the forward by up to {worst} (tolerance {ORACLE_TOL})")
+    want = {"rmsnorm": (2 * ORACLE_LAYERS + 1) * (2 + SERVE_NEW),
+            "rmsnorm/residual": 0, "flash_fwd": ORACLE_LAYERS}
+    if oracle_launches != want:
+        raise AssertionError(f"oracle launches {oracle_launches}, expected {want}")
+    log(f"serve: oracle ({ORACLE_LAYERS} layers, full width, f32) prefill + "
+        f"{SERVE_NEW} teacher-forced decode steps match the cache-less forward "
+        f"within {ORACLE_TOL} (max abs diff {worst}; logits up to "
+        f"{float(full.abs().max())}); launches {oracle_launches}; "
+        f"{time.perf_counter() - t0:.3f}s")
+    del omodel, full, cache
+    torch.cuda.empty_cache()
+
+    # card against CPU: reduced stablelm-12b with GQA, f32
+    t0 = time.perf_counter()
+    scfg = configs.get_config(SERVE_ARCH).reduced(dtype="float32", n_heads=8,
+                                                  n_kv_heads=2)
+    cpu_model = models.init_params(scfg, torch.Generator().manual_seed(2), "cpu")
+    card_model = models.init_params(scfg, torch.Generator().manual_seed(2), "cpu").to(dev)
+    sprompt = torch.from_numpy(np.random.default_rng(7).integers(
+        0, scfg.vocab_size, (2, 24)))
+    cpu_tok = serve.greedy_generate(scfg, cpu_model, sprompt, 8, "cpu")
+    card_tok = serve.greedy_generate(scfg, card_model, sprompt, 8).cpu()
+    if not torch.equal(cpu_tok, card_tok):
+        raise AssertionError(f"greedy tokens differ card vs CPU:\n{cpu_tok}\n{card_tok}")
+    with torch.inference_mode():
+        cpu_logits, _, _ = models.forward(scfg, cpu_model, sprompt)
+        card_logits, _, _ = models.forward(scfg, card_model, sprompt.to(dev))
+    diff = float((card_logits.cpu() - cpu_logits).abs().max())
+    if not bool(torch.isclose(card_logits.cpu(), cpu_logits, rtol=CARD_CPU_LOGIT_TOL,
+                              atol=CARD_CPU_LOGIT_TOL).all()):
+        raise AssertionError(f"forward logits differ card vs CPU by {diff}")
+    log(f"serve: reduced {SERVE_ARCH} (GQA 8/2, f32) card vs CPU: the same "
+        f"greedy tokens {card_tok[0].tolist()}; forward logits within "
+        f"{CARD_CPU_LOGIT_TOL} (max abs diff {diff}); {time.perf_counter() - t0:.3f}s")
+    return serve_launches, oracle_launches
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the refresh round
 # ---------------------------------------------------------------------------
@@ -403,19 +686,32 @@ def refresh_round(torch, core, mv, root, bytes_per_root, budget, device):
                 launches=launches, sc_launches=sc_launches, names=names)
 
 
-def profiled_round(torch, mv, wl, plan, budget, root):
-    """Rerun the S/C round under ``torch.profiler`` (device activity only)
-    and print the device's busy share and its top kernels."""
+def device_kernel_times(torch, fn):
+    """Run ``fn`` under ``torch.profiler`` (device activity only): its wall
+    seconds (host clock, synchronised), ``{kernel name: (device us,
+    count)}`` and what ``fn`` returned."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rep = mv.Controller(wl, mv.DiskStore(root, device="cuda"), budget).run(plan)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     by_name = {}
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
         if us > 0:
             by_name[e.key] = (us, e.count)
+    return wall, by_name, result
+
+
+def profiled_round(torch, mv, wl, plan, budget, root):
+    """Rerun the S/C round under ``torch.profiler`` (device activity only)
+    and print the device's busy share and its top kernels."""
+    _, by_name, rep = device_kernel_times(
+        torch, lambda: mv.Controller(wl, mv.DiskStore(root, device="cuda"),
+                                     budget).run(plan))
     copy_us = sum(us for k, (us, _) in by_name.items()
                   if k.startswith(("Memcpy", "Memset")))
     kernel_us = sum(us for us, _ in by_name.values()) - copy_us
@@ -532,6 +828,7 @@ def main() -> int:
     # -- 3. kernels -------------------------------------------------------------
     t_phase = time.perf_counter()
     rows = kernel_phase(torch, np, dp, dev, bw, inst_rate, per_row)
+    rows += model_kernel_phase(torch, dev, bw)
     log(f"phase kernels {time.perf_counter() - t_phase:.1f}s")
 
     # -- 4. main path -----------------------------------------------------------
@@ -637,21 +934,41 @@ def main() -> int:
     shutil.rmtree(store_root, ignore_errors=True)
     log(f"phase cpu {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 7. kernels line ------------------------------------------------------------
+    # -- 7. serving -----------------------------------------------------------------
+    t_phase = time.perf_counter()
+    serve_launches, oracle_launches = serve_phase(torch, np, dev)
+    log(f"phase serve {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 8. kernels line ------------------------------------------------------------
+    # Each kernel reports the times of the case its path's calls take (the
+    # data plane's 16.7M-row columns, RMSNorm on the bf16 serving prefill, the
+    # flash forward on the f32 oracle's 544 positions) and the worst error
+    # over all its cases. The residual RMSNorm's launches are its variant's
+    # share of the RMSNorm count; the plain RMSNorm's are the rest.
+    model_launches = {k: serve_launches[k] + oracle_launches[k]
+                      for k in serve_launches}
+    model_launches["rmsnorm_residual"] = model_launches.pop("rmsnorm/residual")
+    model_launches["rmsnorm"] -= model_launches["rmsnorm_residual"]
     headline = {"filter_gt": "f32", "map_derived": "two_f32",
                 "fixed_point_encode": "f32", "probe_sorted": "16.7M_into_4.2M",
-                "hash64": "uniform", "pid_hist": "uniform_P8"}
+                "hash64": "uniform", "pid_hist": "uniform_P8",
+                "rmsnorm": "2048x5120_bfloat16",
+                "rmsnorm_residual": "2048x5120_bfloat16",
+                "flash_fwd": f"{SERVE_BATCH}x32/8x544x544x160_causal_float32"}
     kernels = []
     for kernel, case in headline.items():
         row = next(r for r in rows if r["kernel"] == kernel and r["case"] == case)
+        launches = (model_launches[kernel] if kernel in model_launches
+                    else main["launches"][kernel] + part_launches[kernel])
         kernels.append(dict(
-            name=kernel, route="cuda", source=SOURCE, replaces=REPLACES[kernel],
-            launches=main["launches"][kernel] + part_launches[kernel],
+            name=kernel, route="cuda", source=MODEL_SOURCES.get(kernel, SOURCE),
+            replaces=REPLACES[kernel], launches=launches,
             max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == kernel),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
-    log(f"launches: main path {main['launches']}; partitioned path {part_launches}")
+    log(f"launches: main path {main['launches']}; partitioned path {part_launches}; "
+        f"serving {serve_launches}; serving oracle {oracle_launches}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,3 +19,17 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def on_cpu(*tensors: torch.Tensor | None) -> bool:
+    """Which version a kernel wrapper takes for these tensors: True when
+    every given tensor lies on the CPU (the plain version), False when every
+    one lies on one CUDA device (the kernel). Anything else raises."""
+    devs = {t.device.type for t in tensors if t is not None}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        if len({t.device for t in tensors if t is not None}) != 1:
+            raise ValueError("inputs lie on different CUDA devices")
+        return False
+    raise ValueError(f"unsupported device mix {sorted(devs)}: expected cpu or cuda")

@@ -1,0 +1,8 @@
+"""Model kernels: hand-written CUDA for the card, plain PyTorch versions for
+the CPU and as the oracle (``ref``). The entry points are ``ops.rmsnorm``,
+``ops.flash_attention`` and ``flash_attention_fwd`` (with the log-sum-exp);
+the submodules ``rmsnorm`` and ``flash_attention`` keep their names here."""
+from . import ops, ref
+from .flash_attention import flash_attention_fwd
+
+__all__ = ["ops", "ref", "flash_attention_fwd"]

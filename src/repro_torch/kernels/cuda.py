@@ -1,0 +1,37 @@
+"""C entry points of the model kernels (``csrc/rmsnorm.cu``,
+``csrc/flash_attention.cu``) and their launch counters.
+
+Each wrapper launches through :func:`repro_torch.native.launch`, which
+counts the launch (and a variant's) once it was accepted; nothing else
+touches the counters. ``repro_torch.kernels.ops`` re-exports them as
+``ops.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import native
+
+KERNELS = ("rmsnorm", "flash_fwd")
+launches = native.LaunchCounts(KERNELS)
+# Launches of one variant within a kernel's count: the residual RMSNorm has
+# no caller on the model path and runs only where it is asked for.
+variant_launches = native.LaunchCounts(("rmsnorm/residual",))
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+native.declare("rmsnorm", {
+    "sc_rmsnorm": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, ctypes.c_float],
+})
+native.declare("flash_attention", {
+    "sc_flash_fwd": [_P] * 5 + [_I] * 6 + [_P, ctypes.c_float, _I, _I],
+})
+# dtype codes of the C interfaces
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    """Set every model kernel's launch counter to 0."""
+    launches.reset()
+    variant_launches.reset()

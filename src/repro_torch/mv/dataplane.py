@@ -9,7 +9,8 @@ Dispatch is by the device of the tensor it is given, and nothing else:
   where the primitive has one, or the wrapper raises. No path falls back.
 
 Kernels, each with its plain version beside it and a launch counter
-(``launches``) that the wrapper bumps where it launches and nowhere else:
+(``launches``) that ``native.launch`` bumps where the wrapper launches
+and nowhere else:
 
 * ``filter_gt``           — ``filter_mask``, FILTER's pinned-dtype compare;
 * ``map_derived``         — MAP's ``a*1.0001f + b/(1+|b|)`` in one fused
@@ -36,10 +37,12 @@ Wrappers launch on ``torch.cuda.current_stream()`` and never synchronise.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import numpy as np
 import torch
+
+from .. import native
+from ..device import on_cpu
 
 __all__ = [
     "hash64",
@@ -74,81 +77,30 @@ _MAP_C = float(np.float32(1.0001))
 
 KERNELS = ("filter_gt", "map_derived", "fixed_point_encode", "probe_sorted",
            "hash64", "pid_hist")
-launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+launches = native.LaunchCounts(KERNELS)
 # Launches of one instantiation within a kernel's count: the weighted
 # (Z-set) encode runs only on incremental rounds.
-variant_launches: dict[str, int] = {"fixed_point_encode/weighted": 0}
-_count_lock = threading.Lock()
+variant_launches = native.LaunchCounts(("fixed_point_encode/weighted",))
 
 
 def reset_launches() -> None:
     """Set every kernel's launch counter to 0."""
-    with _count_lock:
-        for counts in (launches, variant_launches):
-            for k in counts:
-                counts[k] = 0
+    launches.reset()
+    variant_launches.reset()
 
 
-def _count(kernel: str, variant: str | None = None) -> None:
-    with _count_lock:
-        launches[kernel] += 1
-        if variant is not None:
-            variant_launches[f"{kernel}/{variant}"] += 1
-
-
-_lib_lock = threading.Lock()
-_lib_handle: list[ctypes.CDLL] = []
-
-
-def _lib() -> ctypes.CDLL:
-    """The built ``csrc/dataplane.cu`` with every signature declared."""
-    with _lib_lock:
-        if not _lib_handle:
-            from .. import native
-
-            lib = native.library("dataplane")
-            P, S, N = ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong
-            I = ctypes.c_int
-            sigs = {
-                "sc_filter_gt_f32": [P, ctypes.c_float, P, N, S],
-                "sc_filter_gt_f64": [P, ctypes.c_double, P, N, S],
-                "sc_filter_gt_i64": [P, ctypes.c_double, P, N, S],
-                "sc_map_derived": [P, I, P, I, P, N, S],
-                "sc_fixed_point_encode": [P, I, P, P, N, S],
-                "sc_probe_sorted": [P, N, P, P, P, N, S],
-                "sc_hash64": [P, P, N, S],
-                "sc_pid_hist": [P, N, P, P, N, S],
-            }
-            for fn, argtypes in sigs.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            _lib_handle.append(lib)
-        return _lib_handle[0]
-
-
-def _launch(kernel: str, fn: str, device: torch.device, *args,
-            variant: str | None = None) -> None:
-    """Call one C entry point on ``device``'s current stream; raise when the
-    launch reports an error, count it (and its ``variant``) otherwise."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(_lib(), fn)(*args, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
-    _count(kernel, variant)
-
-
-def _on_cpu(*tensors) -> bool:
-    """True when every given tensor lies on the CPU (plain version); False
-    when every one lies on a CUDA device (kernel). Anything else raises."""
-    devs = {t.device.type for t in tensors if t is not None}
-    if devs == {"cpu"}:
-        return True
-    if devs == {"cuda"}:
-        if len({t.device for t in tensors if t is not None}) != 1:
-            raise ValueError("inputs lie on different CUDA devices")
-        return False
-    raise ValueError(f"unsupported device mix {sorted(devs)}: expected cpu or cuda")
+_P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# Every C entry point of csrc/dataplane.cu and its arguments before the stream.
+native.declare("dataplane", {
+    "sc_filter_gt_f32": [_P, ctypes.c_float, _P, _N],
+    "sc_filter_gt_f64": [_P, ctypes.c_double, _P, _N],
+    "sc_filter_gt_i64": [_P, ctypes.c_double, _P, _N],
+    "sc_map_derived": [_P, _I, _P, _I, _P, _N],
+    "sc_fixed_point_encode": [_P, _I, _P, _P, _N],
+    "sc_probe_sorted": [_P, _N, _P, _P, _P, _N],
+    "sc_hash64": [_P, _P, _N],
+    "sc_pid_hist": [_P, _N, _P, _P, _N],
+})
 
 
 def _check_1d(name: str, t: torch.Tensor, dtypes) -> None:
@@ -158,10 +110,6 @@ def _check_1d(name: str, t: torch.Tensor, dtypes) -> None:
         raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-
-
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +167,8 @@ def _hash_cuda(keys: torch.Tensor) -> torch.Tensor:
     out = torch.empty(len(keys), dtype=torch.uint64, device=keys.device)
     if len(keys) == 0:
         return out
-    _launch("hash64", "sc_hash64", keys.device, _ptr(keys), _ptr(out),
-            ctypes.c_longlong(len(keys)))
+    native.launch("hash64", "sc_hash64", keys.device, native.ptr(keys), native.ptr(out),
+                  ctypes.c_longlong(len(keys)))
     return out
 
 
@@ -231,9 +179,9 @@ def _pid_hist_cuda(keys: torch.Tensor,
     if len(keys) == 0:
         return pid, torch.zeros(P, dtype=torch.int64, device=keys.device)
     hist = torch.empty(P, dtype=torch.int64, device=keys.device)
-    _launch("pid_hist", "sc_pid_hist", keys.device, _ptr(keys),
-            ctypes.c_longlong(P), _ptr(pid), _ptr(hist),
-            ctypes.c_longlong(len(keys)))
+    native.launch("pid_hist", "sc_pid_hist", keys.device, native.ptr(keys),
+                  ctypes.c_longlong(P), native.ptr(pid), native.ptr(hist),
+                  ctypes.c_longlong(len(keys)))
     return pid, hist
 
 
@@ -246,7 +194,7 @@ def _n_partitions(n_partitions: int) -> int:
 
 def hash64(keys: torch.Tensor) -> torch.Tensor:
     """splitmix64 finalizer as ``uint64`` — bitwise the reference's."""
-    if _on_cpu(keys):
+    if on_cpu(keys):
         return _hash64_i64(keys).view(torch.uint64)
     return _hash_cuda(keys)
 
@@ -259,7 +207,7 @@ def pid_hist(keys: torch.Tensor,
     P = _n_partitions(n_partitions)
     if P == 1:
         raise ValueError("pid_hist needs n_partitions > 1")
-    if _on_cpu(keys):
+    if on_cpu(keys):
         return _pid_hist_plain(keys, P)
     return _pid_hist_cuda(keys, P)
 
@@ -271,7 +219,7 @@ def partition_ids(keys: torch.Tensor, n_partitions: int) -> torch.Tensor:
     P = _n_partitions(n_partitions)
     if P == 1:
         return torch.zeros(len(keys), dtype=torch.int64, device=keys.device)
-    if _on_cpu(keys):
+    if on_cpu(keys):
         return _pid_plain(keys, P)
     return _pid_hist_cuda(keys, P)[0]
 
@@ -315,8 +263,8 @@ def _filter_cuda(col: torch.Tensor, threshold: float) -> torch.Tensor:
         fn, thr = "sc_filter_gt_f64", ctypes.c_double(float(threshold))
     else:
         fn, thr = "sc_filter_gt_i64", ctypes.c_double(float(threshold))
-    _launch("filter_gt", fn, col.device, _ptr(col), thr, _ptr(out),
-            ctypes.c_longlong(len(col)))
+    native.launch("filter_gt", fn, col.device, native.ptr(col), thr, native.ptr(out),
+                  ctypes.c_longlong(len(col)))
     return out
 
 
@@ -324,7 +272,7 @@ def filter_mask(col: torch.Tensor, threshold: float) -> torch.Tensor:
     """Boolean FILTER mask ``col > threshold`` under the pinned-dtype compare
     contract: a float column compares in its own width, anything else in
     float64 (torch alone would compare an int64 column in float32)."""
-    if _on_cpu(col):
+    if on_cpu(col):
         return _filter_plain(col, threshold)
     return _filter_cuda(col, threshold)
 
@@ -383,8 +331,8 @@ def _map_cuda(a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
         return out
     a64 = int(a.dtype == torch.float64)
     b64 = int(b is not None and b.dtype == torch.float64)
-    _launch("map_derived", "sc_map_derived", a.device, _ptr(a), a64, _ptr(b),
-            b64, _ptr(out), ctypes.c_longlong(len(a)))
+    native.launch("map_derived", "sc_map_derived", a.device, native.ptr(a), a64,
+                  native.ptr(b), b64, native.ptr(out), ctypes.c_longlong(len(a)))
     return out
 
 
@@ -392,7 +340,7 @@ def map_derived(a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     """The MAP expression ``a*1.0001f + softsign(b)`` (``softsign(a)`` with
     one input column), every mul/add/div/abs correctly rounded and unfused,
     with numpy's result dtype for every input combination."""
-    if _on_cpu(a, b):
+    if on_cpu(a, b):
         return _map_plain(a, b)
     return _map_cuda(a, b)
 
@@ -420,10 +368,10 @@ def _encode_cuda(values: torch.Tensor,
     out = torch.empty(len(values), dtype=torch.int64, device=values.device)
     if len(values) == 0:
         return out
-    _launch("fixed_point_encode", "sc_fixed_point_encode", values.device,
-            _ptr(values), int(values.dtype == torch.float64), _ptr(weights),
-            _ptr(out), ctypes.c_longlong(len(values)),
-            variant=None if weights is None else "weighted")
+    native.launch("fixed_point_encode", "sc_fixed_point_encode", values.device,
+                  native.ptr(values), int(values.dtype == torch.float64), native.ptr(weights),
+                  native.ptr(out), ctypes.c_longlong(len(values)),
+                  variant=None if weights is None else "weighted")
     return out
 
 
@@ -431,7 +379,7 @@ def fixed_point_encode(values: torch.Tensor,
                        weights: torch.Tensor | None = None) -> torch.Tensor:
     """Per-row int64 AGG contribution ``rint(v * AGG_QUANTUM)`` (half to
     even), times the signed Z-set weight when given (wrapping mod 2^64)."""
-    if _on_cpu(values, weights):
+    if on_cpu(values, weights):
         return _encode_plain(values, weights)
     return _encode_cuda(values, weights)
 
@@ -505,9 +453,9 @@ def _probe_cuda(uniq: torch.Tensor,
     n = len(probe)
     hit = torch.empty(n, dtype=torch.bool, device=probe.device)
     pos = torch.empty(n, dtype=torch.int64, device=probe.device)
-    _launch("probe_sorted", "sc_probe_sorted", probe.device, _ptr(uniq),
-            ctypes.c_longlong(len(uniq)), _ptr(probe), _ptr(hit), _ptr(pos),
-            ctypes.c_longlong(n))
+    native.launch("probe_sorted", "sc_probe_sorted", probe.device, native.ptr(uniq),
+                  ctypes.c_longlong(len(uniq)), native.ptr(probe), native.ptr(hit),
+                  native.ptr(pos), ctypes.c_longlong(n))
     return hit, pos
 
 
@@ -520,6 +468,6 @@ def probe_sorted(uniq: torch.Tensor,
     if len(uniq) == 0 or len(probe) == 0:
         return (torch.zeros(len(probe), dtype=torch.bool, device=probe.device),
                 torch.zeros(len(probe), dtype=torch.int64, device=probe.device))
-    if _on_cpu(uniq, probe):
+    if on_cpu(uniq, probe):
         return _probe_plain(uniq, probe)
     return _probe_cuda(uniq, probe)

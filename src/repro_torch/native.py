@@ -7,8 +7,13 @@ the repository, under a name keyed by a hash of the sources and the flags:
 a changed source is rebuilt, an unchanged one reused. ``build`` starts one
 ``nvcc`` per source, all at once, and waits for them together.
 
-Nothing here runs at import: the CPU tests import every module, and this
-machine may have no ``nvcc``.
+Each family of kernels declares its C entry points with :func:`declare`.
+:func:`launch` calls one of them on a device's current stream, raises when
+it reports a CUDA error, and counts the launch against its kernel (and a
+variant of it) in one registry; every kernel wrapper of the port goes
+through it, and nothing else writes the counts. A family reads its own
+counters through :class:`LaunchCounts`. Nothing here builds at import: the
+CPU tests import every module, and a machine without a card has no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -18,14 +23,18 @@ import os
 import shutil
 import subprocess
 import threading
+from collections.abc import Iterable, Iterator, Mapping
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
-SOURCES = ("dataplane",)
+SOURCES = ("dataplane", "rmsnorm", "flash_attention")
 
 # No --use_fast_math: the data-plane kernels hold a bitwise contract with
-# the numpy reference, and every rounding step is spelled out in the source.
+# the numpy reference, and every rounding step is spelled out in the source;
+# the model kernels keep IEEE division, expf and logf.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -34,7 +43,13 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_functions: dict[str, ctypes._CFuncPtr] = {}
 _build_logs: dict[str, str] = {}
+# C entry point -> (source, its arguments before the stream)
+_entry_points: dict[str, tuple[str, list]] = {}
+# launches of every kernel, and of "kernel/variant" for a variant's share
+_counts: dict[str, int] = {}
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -103,3 +118,78 @@ def library(name: str) -> ctypes.CDLL:
             _build_locked((name,))
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def declare(source: str, signatures: dict[str, list]) -> None:
+    """Declare the C entry points of ``csrc/<source>.cu``: each name with
+    the ctypes of its arguments before the stream."""
+    for fn, argtypes in signatures.items():
+        _entry_points[fn] = (source, list(argtypes))
+
+
+def _function(fn: str) -> ctypes._CFuncPtr:
+    """Declared C entry point ``fn``, taking its arguments and then the
+    stream, and returning an int."""
+    f = _functions.get(fn)
+    if f is None:
+        source, argtypes = _entry_points[fn]
+        f = getattr(library(source), fn)
+        with _lock:
+            f.argtypes = [*argtypes, ctypes.c_void_p]
+            f.restype = ctypes.c_int
+            _functions[fn] = f
+    return f
+
+
+def launch(kernel: str, fn: str, device: torch.device, *args,
+           variant: str | None = None) -> None:
+    """Call entry point ``fn`` with ``args`` and ``device``'s current
+    stream, then count one launch of ``kernel`` (and of its ``variant``).
+    Every entry point returns ``cudaGetLastError()``; a non-zero code raises
+    ``RuntimeError`` and counts nothing."""
+    f = _function(fn)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = f(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
+    with _count_lock:
+        _counts[kernel] += 1
+        if variant is not None:
+            _counts[f"{kernel}/{variant}"] += 1
+
+
+class LaunchCounts(Mapping):
+    """A live read-only view of some kernels' launch counts (names as
+    :func:`launch` counts them: ``kernel`` or ``kernel/variant``)."""
+
+    def __init__(self, names: Iterable[str]):
+        self._names = tuple(names)
+        with _count_lock:
+            for name in self._names:
+                _counts.setdefault(name, 0)
+
+    def __getitem__(self, name: str) -> int:
+        if name not in self._names:
+            raise KeyError(name)
+        return _counts[name]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._names)
+
+    def __len__(self) -> int:
+        return len(self._names)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+    def reset(self) -> None:
+        """Set these counts to 0."""
+        with _count_lock:
+            for name in self._names:
+                _counts[name] = 0
+
+
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """A tensor's device address for a C entry point (null for ``None``)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())

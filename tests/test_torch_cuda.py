@@ -1,8 +1,12 @@
 """The port's CUDA kernels on the card: each against the CPU path (the plain
-PyTorch versions, which ``tests/test_torch_dataplane.py`` holds against the
-JAX package) at ragged sizes, the wrappers' refusals, the launch counters,
-and a small refresh round and a small partitioned incremental scenario card
-against CPU. Needs a card; every test skips without one:
+PyTorch versions, which ``tests/test_torch_dataplane.py`` and
+``tests/test_torch_model_kernels.py`` hold against the JAX package) at
+ragged sizes, the wrappers' refusals, the launch counters, a small refresh
+round and a small partitioned incremental scenario card against CPU, and
+small-model serving card against CPU. The data-plane kernels are compared
+bitwise; RMSNorm and the flash forward within the JAX kernel tests'
+tolerances (1e-5 / 2e-2 and 2e-5 / 3e-2 in f32 / bf16). Needs a card; every
+test skips without one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -12,6 +16,9 @@ import torch
 
 import repro_torch.core as core
 import repro_torch.mv as mv
+from repro_torch import configs, models, serve
+from repro_torch.kernels import flash_attention_fwd, ops
+from repro_torch.kernels import ref as kref
 from repro_torch.mv import dataplane as dp
 from repro_torch.mv import tableops as T
 
@@ -198,3 +205,117 @@ def test_small_partitioned_scenario_card_equals_cpu(dev, tmp_path):
     assert card.manifest() == runs["cpu"][1].manifest()
     for name in card.manifest():
         T.assert_tables_bitwise(runs["cpu"][1].read(name), card.read(name), name)
+
+
+# ---------------------------------------------------------------------------
+# model kernels
+# ---------------------------------------------------------------------------
+
+RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def randn(shape, dtype, seed, scale=1.0, shift=0.0):
+    a = np.random.default_rng(seed).standard_normal(shape) * scale + shift
+    return torch.from_numpy(a.astype(np.float32)).to(dtype)
+
+
+def close(cpu_out, cuda_out, tol, ctx=""):
+    for a, b in zip(cpu_out, cuda_out):
+        b = b.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape, ctx
+        torch.testing.assert_close(b.float(), a.float(), atol=tol, rtol=tol,
+                                   msg=lambda m: f"{ctx}\n{m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2048, 5120), (4, 5120), (3, 5, 128), (7, 100),
+                                   (1, 10000)])
+def test_rmsnorm_kernel_matches_cpu(dev, shape, dtype):
+    x = randn(shape, dtype, 1)
+    r = randn(shape, dtype, 2)
+    for w in (randn(shape[-1:], dtype, 3, 0.1, 1.0),
+              randn(shape[-1:], torch.float32, 3, 0.1, 1.0)):
+        for res in (None, r):
+            ops.reset_launches()
+            got = ops.rmsnorm(x.to(dev), w.to(dev), residual=None if res is None
+                              else res.to(dev))
+            assert ops.launches["rmsnorm"] == 1
+            assert ops.variant_launches["rmsnorm/residual"] == (res is not None)
+            close((kref.rmsnorm(x, w, residual=res),), (got,), RMS_TOL[dtype],
+                  f"{shape} w {w.dtype} residual {res is not None}")
+
+
+FLASH_CASES = [  # b, hq, hkv, sq, sk, d, causal
+    (4, 32, 8, 544, 544, 160, True),    # the serving oracle
+    (2, 32, 8, 40, 72, 160, False),     # ragged
+    (2, 32, 8, 100, 300, 160, True),    # causal, sq < sk
+    (1, 8, 2, 300, 100, 160, True),     # causal, sq > sk
+    (2, 8, 2, 65, 65, 16, True),        # reduced models' head dim
+    (1, 16, 16, 130, 130, 256, True),   # gemma-7b's head dim
+    (1, 4, 1, 1, 257, 128, False),      # one query (decode shape)
+    (1, 6, 3, 33, 47, 100, False),      # a head dim between the padded widths
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", FLASH_CASES)
+def test_flash_fwd_kernel_matches_cpu(dev, b, hq, hkv, sq, sk, d, causal, dtype):
+    q = randn((b, hq, sq, d), dtype, 1)
+    k = randn((b, hkv, sk, d), dtype, 2)
+    v = randn((b, hkv, sk, d), dtype, 3)
+    ops.reset_launches()
+    got = flash_attention_fwd(q.to(dev), k.to(dev), v.to(dev), causal=causal)
+    assert ops.launches["flash_fwd"] == 1
+    close(flash_attention_fwd(q, k, v, causal=causal), got, ATTN_TOL[dtype])
+    assert torch.isfinite(got[1]).all()
+
+
+def test_flash_fwd_kernel_takes_strided_views_and_empty_keys(dev):
+    """The model's transposed q/k/v views, and a key set of length 0 (every
+    row masked: o = 0, lse = +inf)."""
+    q = randn((2, 24, 32, 160), torch.bfloat16, 4)    # (b, s, h, d)
+    kv = randn((2, 24, 8, 160), torch.bfloat16, 5)
+    want = flash_attention_fwd(*(t.transpose(1, 2) for t in (q, kv, kv)))
+    got = flash_attention_fwd(*(t.to(dev).transpose(1, 2) for t in (q, kv, kv)))
+    close(want, got, ATTN_TOL[torch.bfloat16])
+    o, lse = flash_attention_fwd(torch.ones(1, 4, 8, 64, device=dev),
+                                 *[torch.ones(1, 2, 0, 64, device=dev)] * 2)
+    assert not o.any() and torch.isposinf(lse).all()
+
+
+def test_model_kernel_wrappers_raise_instead_of_falling_back(dev):
+    x = torch.ones(4, 64, device=dev)
+    with pytest.raises(ValueError, match="device"):
+        ops.rmsnorm(x, torch.ones(64))
+    with pytest.raises(TypeError):
+        ops.rmsnorm(x.half(), torch.ones(64, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rmsnorm(x.t(), torch.ones(4, device=dev))
+    q = torch.ones(1, 4, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="device"):
+        ops.flash_attention(q, q.cpu(), q.cpu())
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q.bfloat16(), q.bfloat16())
+    big = torch.ones(1, 1, 4, 320, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(big, big, big)
+
+
+def test_small_model_serving_card_equals_cpu(dev):
+    cfg = configs.get_config("stablelm-12b").reduced(dtype="float32", n_heads=8,
+                                                     n_kv_heads=2)
+    cpu_model = models.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card_model = models.init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(dev)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 20)))
+    ops.reset_launches()
+    got = serve.greedy_generate(cfg, card_model, prompt, 6)
+    assert ops.launches == {"rmsnorm": (2 * cfg.n_layers + 1) * 6, "flash_fwd": 0}
+    assert torch.equal(got.cpu(), serve.greedy_generate(cfg, cpu_model, prompt, 6, "cpu"))
+    ops.reset_launches()
+    card_logits, _, _ = models.forward(cfg, card_model, prompt.to(dev))
+    assert ops.launches["flash_fwd"] == cfg.n_layers
+    cpu_logits, _, _ = models.forward(cfg, cpu_model, prompt)
+    torch.testing.assert_close(card_logits.cpu(), cpu_logits, atol=1e-4, rtol=1e-4)

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
+"""The port stands alone: it imports neither JAX (nor jaxlib, nor
+``ml_dtypes``, which the card's machine lacks) nor the JAX package, its
 entry points default to the card and refuse to run without one, and on CPU
 tensors it never reaches a CUDA kernel."""
 import ast
@@ -14,6 +15,9 @@ import torch
 
 import repro_torch
 from repro_torch import convert
+from repro_torch import configs as tcfg
+from repro_torch import models as tm
+from repro_torch.serve import greedy_generate
 from repro_torch.mv import dataplane as dp
 from repro_torch.mv import tableops as T
 from repro_torch.mv import workloads as W
@@ -22,6 +26,12 @@ from repro_torch.mv.storage import DiskStore
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+BANNED = ("jax", "jaxlib", "ml_dtypes", "repro")
+_SMALL = tcfg.get_config("stablelm-12b").reduced()
+
+
+def _small_cpu_model():
+    return tm.init_params(_SMALL, torch.Generator(), device="cpu")
 
 
 def port_modules():
@@ -36,7 +46,7 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro'))\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {BANNED!r})\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -62,7 +72,7 @@ def _imported_roots(path: Path) -> set[str]:
 )
 def test_no_jax_or_repro_import_in_source(path):
     roots = _imported_roots(ROOT / path)
-    assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+    assert not roots & set(BANNED), (path, roots)
 
 
 @pytest.mark.parametrize("entry", [
@@ -71,8 +81,14 @@ def test_no_jax_or_repro_import_in_source(path):
     lambda tmp: T.empty_like({"key": torch.int64}),
     lambda tmp: DiskStore(tmp / "store"),
     lambda tmp: convert.table_from_numpy({"key": np.arange(3)}),
+    lambda tmp: tm.init_params(_SMALL, torch.Generator()),
+    lambda tmp: tm.make_cache(_SMALL, 1, 4),
+    lambda tmp: greedy_generate(_SMALL, _small_cpu_model(),
+                                torch.zeros(1, 2, dtype=torch.int64), 2),
+    lambda tmp: convert.params_from_reference(_SMALL, {}),
 ], ids=["realize_workload", "make_base_table", "empty_like", "DiskStore",
-        "table_from_numpy"])
+        "table_from_numpy", "init_params", "make_cache", "greedy_generate",
+        "params_from_reference"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
