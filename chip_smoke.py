@@ -17,8 +17,13 @@ Phases, in order; any failure raises and exits non-zero:
              flash-attention forward within the JAX kernel tests'
              tolerances at the serving path's shapes (rows of 5120;
              b 4, 32 query over 8 kv heads, 544 positions, head dim 160),
-             f32 and bf16, with ragged and sq != sk cases; kernel, plain and
-             library-call times from CUDA events;
+             f32 and bf16, with ragged and sq != sk cases; the two
+             flash-attention backward kernels (dq, dk/dv) within 2e-4 / 3e-2
+             at the training path's shape (b 2, 32 over 32 heads, 4096
+             positions, head dim 80, causal; the forward there too), the
+             serving shape (GQA), a ragged non-causal, a causal sq != sk
+             and a keyless case; kernel, plain and library-call times from
+             CUDA events, and the forward+backward pair against SDPA's;
 4. main    — one S/C refresh round: ``generate_workload(12, seed=4)``
              realized at 512 MiB per root on the card, calibrated, solved
              for a 1.6 GB Memory Catalog, run serially and with S/C; the
@@ -50,7 +55,18 @@ Phases, in order; any failure raises and exits non-zero:
              cache-less forward (which runs the flash kernel) within 2e-2;
              then reduced stablelm-12b with GQA in f32, card against CPU:
              the same greedy tokens, logits within 1e-4;
-8. a JSON line listing every kernel with its launches over every path,
+8. train   — the training data (4 shards of 64 x 512 tokens, vocab
+             50304, 4097-token rows) materialized by S/C on the card, then
+             ``run_training`` of stablelm-3b at full width and depth (32
+             layers, d_model 2560, bf16, f32 AdamW moments, remat
+             ``block``): 2 steps of 4 rows of 4096 tokens in 2 microbatches;
+             finite losses and grad norms, the kernels' launches equal to
+             the count the code predicts, step seconds, tokens/s, peak
+             device memory, the final write-behind save; one more step
+             under ``torch.profiler``. Then reduced stablelm-3b with GQA in
+             f32, card against CPU (two train steps agree; the CPU launches
+             no kernel), and a bitwise checkpoint save/restore round trip;
+9. a JSON line listing every kernel with its launches over every path,
    its times, its bound and its worst error over its cases; then the JSON
    result line.
 
@@ -108,11 +124,15 @@ REPLACES.update({
     "rmsnorm": "src/repro/kernels/rmsnorm.py:17",
     "rmsnorm_residual": "src/repro/kernels/rmsnorm.py:25",
     "flash_fwd": "src/repro/kernels/flash_attention.py:41",
+    "flash_bwd_dq": "src/repro/kernels/flash_attention.py:167",
+    "flash_bwd_dkv": "src/repro/kernels/flash_attention.py:209",
 })
 SOURCE = "src/repro_torch/csrc/dataplane.cu"
 MODEL_SOURCES = {"rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
                  "rmsnorm_residual": "src/repro_torch/csrc/rmsnorm.cu",
-                 "flash_fwd": "src/repro_torch/csrc/flash_attention.cu"}
+                 "flash_fwd": "src/repro_torch/csrc/flash_attention.cu",
+                 "flash_bwd_dq": "src/repro_torch/csrc/flash_attention.cu",
+                 "flash_bwd_dkv": "src/repro_torch/csrc/flash_attention.cu"}
 # The serving path: stablelm-12b at full width, 4 requests of 512-token
 # prompts, 32 new tokens each; the oracle cuts depth to 2 layers (f32).
 SERVE_ARCH = "stablelm-12b"
@@ -125,6 +145,35 @@ RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 ORACLE_TOL = 2e-2             # tests/models/test_decode.py
 CARD_CPU_LOGIT_TOL = 1e-4     # f32 on both sides, sums in another order
+# The flash backward: the JAX gradient test's 2e-4 in f32; in bf16 one
+# rounding of each gradient, as the forward's 3e-2.
+BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+# Every model kernel's output is also held to the data's own scale: its
+# ||got - want|| / ||want||. One bf16 rounding of the output is at most
+# 2^-8 of each element, about 2^-9 in the mean (2e-3); a kernel that drops
+# or repeats a tile is off by the tile's share of the value. f32 sums taken
+# in another order stay near 1e-6.
+REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# The training path: stablelm-3b at full width and depth, train_4k's 4096
+# positions, 4 rows a step in 2 microbatches of 2, for 2 steps.
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_SEQ, TRAIN_ROWS, TRAIN_MICRO, TRAIN_STEPS = 4096, 4, 2, 2
+TRAIN_DATA = dict(n_shards=4, docs_per_shard=64, doc_len=512, vocab_size=50304,
+                  seq_len=TRAIN_SEQ + 1)
+TRAIN_SHAPE = (2, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 80, True)  # one microbatch's attention
+# Card against CPU on reduced stablelm-3b, f32 on both sides, sums in
+# another order (tests/test_torch_train.py's tolerances): one microbatch's
+# gradients before any update within 1e-5 + 1e-4·|g|; after two steps
+# loss and grad norm within 1e-5 relative and the moments within 2e-6 (m)
+# and 2e-8 (v). Parameters: Adam's normalised update m/(sqrt(v) + eps)
+# turns the last bits of a gradient near eps into a different fraction of
+# a step, so an element may move by up to lr/4 more on one side (1.1e-3 at
+# lr 1e-2 seen on an H100); at most 1e-3 of the elements may differ by more
+# than 1e-5.
+SMALL_TRAIN_OPT = dict(lr=1e-2, warmup_steps=2)
+SMALL_TRAIN_TOL = {"loss": 1e-5, "grad_atol": 1e-5, "grad_rtol": 1e-4,
+                   "params_max": SMALL_TRAIN_OPT["lr"] / 4, "params_close": 1e-5,
+                   "params_share": 1e-3, "m": 2e-6, "v": 2e-8}
 
 
 def log(msg: str) -> None:
@@ -234,6 +283,41 @@ def max_abs_err(torch, got, want) -> float:
         d = (g.double() - w.double()).abs().nan_to_num(0.0, 0.0, 0.0)
         err = max(err, float(d.max()) if d.numel() else 0.0)
     return err
+
+
+def rel_err(torch, got, want) -> tuple[float, float]:
+    """The worst output's ||got - want|| / ||want|| over the entries where
+    ``want`` is finite (a keyless row's lse, +inf on both sides, is held
+    apart), with that output's RMS |want|: the scale the error is taken
+    against. An output that should be all zero counts ||got||."""
+    worst = (0.0, 0.0)
+    for g, w in zip(got, want):
+        fin = torch.isfinite(w)
+        w64 = w.double()[fin]
+        diff = float((g.double()[fin] - w64).norm())
+        norm = float(w64.norm())
+        rel = diff / norm if norm else diff
+        if rel >= worst[0]:
+            worst = (rel, norm / max(w64.numel(), 1) ** 0.5)
+    return worst
+
+
+def hold(torch, label, got, want, tol, rel_tol) -> tuple[float, float, float]:
+    """Raise unless every output matches its plain version's type and shape,
+    lies within |got - want| <= tol + tol·|want| elementwise (+inf lse on
+    both sides where a row has no key) and within ``rel_tol`` of it by
+    :func:`rel_err`; give the worst absolute error, the relative error and
+    the RMS |want| it is taken against."""
+    for g, w in zip(got, want, strict=True):
+        if g.dtype != w.dtype or g.shape != w.shape or not bool(torch.isclose(
+                g.float(), w.float(), rtol=tol, atol=tol).all()):
+            raise AssertionError(f"{label}: kernel differs from plain beyond {tol} "
+                                 f"(max abs diff {max_abs_err(torch, got, want)})")
+    rel, rms = rel_err(torch, got, want)
+    if rel > rel_tol:
+        raise AssertionError(f"{label}: ||kernel - plain|| / ||plain|| = {rel} beyond "
+                             f"{rel_tol} (RMS |plain| {rms})")
+    return max_abs_err(torch, got, want), rel, rms
 
 
 def bitwise_equal(torch, got, want) -> bool:
@@ -384,10 +468,21 @@ def check_grouping(torch, dp, keys, pid, case):
         f"ok; grouping torch.sort(pid, stable=True) ms={sort_ms}")
 
 
+def attention_pairs(b, hq, sq, sk, causal) -> int:
+    """(query, key) pairs a causal (top-left) or full attention computes."""
+    return b * hq * sum(min(i + 1, sk) if causal else sk for i in range(sq))
+
+
 def model_kernel_cases(torch, dev):
-    """(kernel, case, dtype, inputs, kernel fn, plain fn, library fn or None,
-    operations) for RMSNorm and the flash-attention forward at the serving
-    path's shapes, with inputs made on the card from a seeded generator."""
+    """One dict per case (kernel, case, dtype, inputs, kernel fn, plain fn,
+    library fn or None, ``lib_minus``: a call whose time the library time
+    leaves out, operations, timing samples) for RMSNorm, the flash-attention
+    forward and its two backward kernels at the serving and training paths'
+    shapes, with inputs made on the card from a seeded generator. A
+    backward case's plain fn is ``ref.attention_bwd``, which computes dq, dk
+    and dv in one call (timed whole for both kernels); its library time is
+    SDPA's forward+backward minus SDPA's forward, which computes dq, dk and
+    dv together."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref, rmsnorm as rn
 
@@ -397,6 +492,10 @@ def model_kernel_cases(torch, dev):
     def randn(shape, dtype, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
 
+    def case(kernel, name, dn, inputs, kfn, pfn, lfn, ops, lib_minus=None, samples=21):
+        return dict(kernel=kernel, case=name, dn=dn, inputs=inputs, kfn=kfn, pfn=pfn,
+                    lfn=lfn, lib_minus=lib_minus, ops=ops, samples=samples)
+
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
@@ -405,17 +504,18 @@ def model_kernel_cases(torch, dev):
             r = randn((rows, 5120), dtype)
             w = randn((5120,), dtype, 0.1, 1.0)
             n = rows * 5120
-            cases.append(("rmsnorm", f"{rows}x5120_{dn}", dn, (x, w),
-                          lambda x=x, w=w: (rn.rmsnorm(x, w),),
-                          lambda x=x, w=w: (ref.rmsnorm(x, w),),
-                          lambda x=x, w=w: (F.rms_norm(x, (5120,), w, 1e-6),), 4 * n))
-            cases.append(("rmsnorm_residual", f"{rows}x5120_{dn}", dn, (x, r, w),
-                          lambda x=x, r=r, w=w: (rn.rmsnorm(x, w, residual=r),),
-                          lambda x=x, r=r, w=w: (ref.rmsnorm(x, w, residual=r),),
-                          None, 5 * n))
+            cases.append(case("rmsnorm", f"{rows}x5120_{dn}", dn, (x, w),
+                              lambda x=x, w=w: (rn.rmsnorm(x, w),),
+                              lambda x=x, w=w: (ref.rmsnorm(x, w),),
+                              lambda x=x, w=w: (F.rms_norm(x, (5120,), w, 1e-6),), 4 * n))
+            cases.append(case("rmsnorm_residual", f"{rows}x5120_{dn}", dn, (x, r, w),
+                              lambda x=x, r=r, w=w: (rn.rmsnorm(x, w, residual=r),),
+                              lambda x=x, r=r, w=w: (ref.rmsnorm(x, w, residual=r),),
+                              None, 5 * n))
         shapes = [  # (b, hq, hkv, sq, sk, d, causal)
+            TRAIN_SHAPE,                                 # the training path
             (SERVE_BATCH, 32, 8, SERVE_PROMPT + SERVE_NEW, SERVE_PROMPT + SERVE_NEW,
-             160, True),
+             160, True),                                 # the serving oracle (GQA)
             (SERVE_BATCH, 32, 8, 40, 72, 160, False),    # ragged, non-causal
             (SERVE_BATCH, 32, 8, 100, 300, 160, True),   # causal, sq != sk
             (1, 32, 8, 8, 0, 160, True),                 # no key: every row masked
@@ -424,76 +524,165 @@ def model_kernel_cases(torch, dev):
             q = randn((b, hq, sq, d), dtype)
             k = randn((b, hkv, sk, d), dtype)
             v = randn((b, hkv, sk, d), dtype)
-            pairs = sum(min(i + 1, sk) if causal else sk for i in range(sq))
-            lib = None if sk == 0 else (
-                lambda q=q, k=k, v=v, c=causal: (F.scaled_dot_product_attention(
-                    q, k, v, is_causal=c, enable_gqa=True),))
-            cases.append((
-                "flash_fwd", f"{b}x{hq}/{hkv}x{sq}x{sk}x{d}"
-                f"{'_causal' if causal else ''}_{dn}", dn, (q, k, v),
+            do = randn((b, hq, sq, d), dtype)
+            pairs = attention_pairs(b, hq, sq, sk, causal)
+            samples = 5 if pairs > 1e8 else 21
+            name = f"{b}x{hq}/{hkv}x{sq}x{sk}x{d}{'_causal' if causal else ''}_{dn}"
+            sdpa = lambda q, k, v, c=causal: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=c, enable_gqa=True)
+            lib = None if sk == 0 else (lambda q=q, k=k, v=v, f=sdpa: (f(q, k, v),))
+            cases.append(case(
+                "flash_fwd", name, dn, (q, k, v),
                 lambda q=q, k=k, v=v, c=causal: fa.flash_attention_fwd(q, k, v, causal=c),
                 lambda q=q, k=k, v=v, c=causal: ref.attention_with_lse(q, k, v, causal=c),
-                lib, 4 * b * hq * pairs * d))
+                lib, 4 * pairs * d, samples=samples))
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            delta = (do.float() * o.float()).sum(-1)
+            scale = 1.0 / d**0.5
+            grads = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            lib_pair = lib_fwd = None
+            if sk:
+                lib_pair = lambda g=grads, do=do, f=sdpa: torch.autograd.grad(  # noqa: E731
+                    f(*g), g, do)
+                lib_fwd = lambda g=grads, f=sdpa: (f(*g),)  # noqa: E731
+            bwd_in = (q, k, v, do, lse, delta)
+            plain = lambda q=q, k=k, v=v, o=o, lse=lse, do=do, c=causal: (  # noqa: E731
+                ref.attention_bwd(q, k, v, o, lse, do, causal=c))
+            cases.append(case(
+                "flash_bwd_dq", name, dn, bwd_in,
+                lambda a=bwd_in, c=causal, s=scale: (fa._launch_dq(*a, c, s),),
+                lambda p=plain: p()[:1], lib_pair, 6 * pairs * d, lib_fwd, samples))
+            if sk:
+                cases.append(case(
+                    "flash_bwd_dkv", name, dn, bwd_in,
+                    lambda a=bwd_in, c=causal, s=scale: fa._launch_dkv(*a, c, s),
+                    lambda p=plain: p()[1:], lib_pair, 8 * pairs * d, lib_fwd, samples))
+            else:  # no kv row: nothing to launch; the wrapper gives empty dk, dv
+                _, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+                if dk.shape != k.shape or dv.shape != v.shape:
+                    raise AssertionError(f"flash_bwd_dkv/{name}: dk, dv not empty")
     return cases
 
 
 def model_kernel_phase(torch, dev, bw):
-    """Hold RMSNorm and the flash forward against their plain versions
-    within the JAX kernel tests' tolerances (|got - want| <= tol + tol·|want|,
-    +inf lse on both sides where a row has no key); the flash forward's lse
-    must be finite on every row that has one. Operations count against the
-    f32 rate for f32 inputs and the bf16 tensor-core rate for bf16 ones."""
+    """Hold RMSNorm and the flash forward and backward against their plain
+    versions (:func:`hold`: the JAX kernel tests' tolerances elementwise and
+    ``REL_TOL`` relative to the data); the flash forward's lse must be
+    finite on every row that has one, and a keyless row must give o = 0,
+    lse = +inf and dq = 0. Operations count against the f32 rate for f32
+    inputs and the bf16 tensor-core rate for bf16 ones."""
     rows = []
-    for kernel, case, dn, inputs, kfn, pfn, lfn, ops in model_kernel_cases(torch, dev):
-        got, want = kfn(), pfn()
+    lib_times = {}   # SDPA's backward, shared by the two backward kernels
+    for c in model_kernel_cases(torch, dev):
+        kernel, case, dn = c["kernel"], c["case"], c["dn"]
+        got, want = c["kfn"](), c["pfn"]()
         torch.cuda.synchronize()
-        tol = (ATTN_TOL if kernel == "flash_fwd" else RMS_TOL)[dn]
-        for g, w in zip(got, want):
-            if g.dtype != w.dtype or g.shape != w.shape or not bool(torch.isclose(
-                    g.float(), w.float(), rtol=tol, atol=tol).all()):
-                raise AssertionError(f"{kernel}/{case}: kernel differs from plain "
-                                     f"beyond {tol}")
+        tol = {"flash_fwd": ATTN_TOL, "flash_bwd_dq": BWD_TOL,
+               "flash_bwd_dkv": BWD_TOL}.get(kernel, RMS_TOL)[dn]
+        err, rel, rms = hold(torch, f"{kernel}/{case}", got, want, tol, REL_TOL[dn])
+        keyless = kernel.startswith("flash") and c["inputs"][1].shape[2] == 0
         if kernel == "flash_fwd":
             lse = got[1]
-            if inputs[1].shape[2] > 0 and not bool(torch.isfinite(lse).all()):
+            if not keyless and not bool(torch.isfinite(lse).all()):
                 raise AssertionError(f"{kernel}/{case}: non-finite lse on a real row")
-            if inputs[1].shape[2] == 0 and not (bool(torch.isposinf(lse).all())
-                                                and not bool(got[0].any())):
+            if keyless and not (bool(torch.isposinf(lse).all()) and not bool(got[0].any())):
                 raise AssertionError(f"{kernel}/{case}: a row with no key must give "
                                      "o = 0 and lse = +inf")
-        err = max_abs_err(torch, got, want)
-        nbytes = sum(t.nbytes for t in inputs) + sum(t.nbytes for t in got)
+        if kernel == "flash_bwd_dq" and keyless and bool(got[0].any()):
+            raise AssertionError(f"{kernel}/{case}: a row with no key must give dq = 0")
+        nbytes = sum(t.nbytes for t in c["inputs"]) + sum(t.nbytes for t in got)
         bytes_ms = nbytes / bw * 1e3
-        ops_ms = ops / (PEAK_BF16_FLOPS if dn == "bfloat16" else PEAK_FLOPS) * 1e3
+        ops_ms = c["ops"] / (PEAK_BF16_FLOPS if dn == "bfloat16" else PEAK_FLOPS) * 1e3
+        timing = dict(samples=c["samples"], batch=10 if c["samples"] > 5 else 2)
+        library_ms = None
+        if c["lfn"] is not None:
+            key = (id(c["lfn"]), case)
+            if key not in lib_times:
+                lib_times[key] = time_ms(torch, c["lfn"], **timing) - (
+                    0.0 if c["lib_minus"] is None else time_ms(torch, c["lib_minus"], **timing))
+            library_ms = lib_times[key]
         row = dict(
             kernel=kernel, case=case, max_abs_err=err,
-            ms=time_ms(torch, kfn), plain_ms=time_ms(torch, pfn),
-            library_ms=None if lfn is None else time_ms(torch, lfn),
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            bytes=nbytes,
+            ms=time_ms(torch, c["kfn"], **timing), plain_ms=time_ms(torch, c["pfn"], **timing),
+            library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
         )
         rows.append(row)
-        log(f"kernel {kernel:<17} {case:<34} within {tol}  max_abs_err={err} "
-            f"ms={row['ms']} plain_ms={row['plain_ms']} "
+        log(f"kernel {kernel:<17} {case:<38} within {tol}  max_abs_err={err} "
+            f"rel_err={rel} (limit {REL_TOL[dn]}, RMS |plain| {rms}) ms={row['ms']} plain_ms={row['plain_ms']} "
             f"library_ms={row['library_ms']} bound_ms={row['bound_ms']} "
             f"({row['bound_by']}, {nbytes} B, bytes {bytes_ms} ms, "
-            f"{ops} ops {ops_ms} ms)")
+            f"{c['ops']} ops {ops_ms} ms)")
+        del got, want
+    bwd_wrapper(torch, dev)
+    flash_pair(torch, dev)
     return rows
+
+
+def bwd_wrapper(torch, dev):
+    """The backward wrapper that training calls (``flash_attention_bwd``:
+    its own δ, the lse cast, ``do`` as autograd hands it back through the
+    model's (b, s, h, d) layout, a transposed view) against
+    ``ref.attention_bwd`` at the training path's shape, in both types, held
+    as the backward kernels are."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    b, hq, hkv, sq, sk, d, causal = TRAIN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+                   for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+        do = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+        if do.is_contiguous():
+            raise AssertionError("flash_attention_bwd check: do should be a strided view")
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = ref.attention_bwd(q, k, v, o, lse, do, causal=causal)
+        err, rel, rms = hold(torch, f"flash_attention_bwd/{dn}", got, want,
+                             BWD_TOL[dn], REL_TOL[dn])
+        log(f"kernel flash_attention_bwd (wrapper, do strides {do.stride()}) "
+            f"{b}x{hq}/{hkv}x{sq}x{sk}x{d}{'_causal' if causal else ''}_{dn}: dq, dk, dv "
+            f"within {BWD_TOL[dn]}  max_abs_err={err} rel_err={rel} "
+            f"(limit {REL_TOL[dn]}, RMS |plain| {rms})")
+        del got, want
+
+
+def flash_pair(torch, dev):
+    """The flash forward+backward pair (the autograd Function, both backward
+    kernels) against SDPA's pair at the training path's shape, in both
+    types."""
+    from repro_torch.kernels import ops
+
+    F = torch.nn.functional
+    b, hq, hkv, sq, sk, d, causal = TRAIN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+                   .requires_grad_(True) for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+        do = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
+        ours = time_ms(torch, lambda: torch.autograd.grad(
+            ops.flash_attention(q, k, v, causal=causal), (q, k, v), do), samples=5, batch=2)
+        sdpa = time_ms(torch, lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), (q, k, v), do), samples=5, batch=2)
+        log(f"kernel flash pair (forward + backward) {b}x{hq}/{hkv}x{sq}x{sk}x{d}"
+            f"{'_causal' if causal else ''}_{str(dtype).split('.')[1]}: ms={ours} "
+            f"SDPA pair ms={sdpa} ({ours / sdpa:.2f}x)")
 
 
 # ---------------------------------------------------------------------------
 # phase 7: serving
 # ---------------------------------------------------------------------------
 
-def log_breakdown(label, wall, by_name, per=1):
+def log_breakdown(label, wall, by_name, per=1, phase="serve"):
     """The device's busy share of ``wall`` and the top kernels, each over
     ``per`` steps."""
     busy = sum(us for us, _ in by_name.values())
-    log(f"serve: profile {label}: wall {wall / per * 1e3:.3f} ms, device busy "
+    log(f"{phase}: profile {label}: wall {wall / per * 1e3:.3f} ms, device busy "
         f"{busy / per / 1e3:.3f} ms, busy share {busy / (wall * 1e6):.4f}")
     for k, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        log(f"serve:   {us / per / 1e3:9.4f} ms {count / per:8.1f}x  {k[:90]}")
+        log(f"{phase}:   {us / per / 1e3:9.4f} ms {count / per:8.1f}x  {k[:90]}")
 
 
 def serve_phase(torch, np, dev):
@@ -543,7 +732,7 @@ def serve_phase(torch, np, dev):
         raise AssertionError(f"generated tokens {tuple(out.shape)} out of range")
     forwards = 1 + (SERVE_NEW - 1)
     want = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards, "rmsnorm/residual": 0,
-            "flash_fwd": 0}
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     if serve_launches != want:
         raise AssertionError(f"serving launches {serve_launches}, expected {want}")
     log(f"serve: {SERVE_BATCH} requests x {SERVE_PROMPT}-token prompts, "
@@ -591,7 +780,8 @@ def serve_phase(torch, np, dev):
         raise AssertionError(f"serving oracle: prefill/decode logits differ from "
                              f"the forward by up to {worst} (tolerance {ORACLE_TOL})")
     want = {"rmsnorm": (2 * ORACLE_LAYERS + 1) * (2 + SERVE_NEW),
-            "rmsnorm/residual": 0, "flash_fwd": ORACLE_LAYERS}
+            "rmsnorm/residual": 0, "flash_fwd": ORACLE_LAYERS, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
     if oracle_launches != want:
         raise AssertionError(f"oracle launches {oracle_launches}, expected {want}")
     log(f"serve: oracle ({ORACLE_LAYERS} layers, full width, f32) prefill + "
@@ -625,6 +815,195 @@ def serve_phase(torch, np, dev):
         f"greedy tokens {card_tok[0].tolist()}; forward logits within "
         f"{CARD_CPU_LOGIT_TOL} (max abs diff {diff}); {time.perf_counter() - t0:.3f}s")
     return serve_launches, oracle_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+def predicted_train_launches(cfg, steps, n_micro) -> dict:
+    """Launches of one ``run_training`` under remat ``block``, per
+    microbatch: every layer's flash forward runs once in the forward and
+    once in its checkpoint region's recompute, each backward kernel once;
+    RMSNorm twice per layer and once at the final norm in the forward, and
+    again twice per layer in the recompute (the final norm lies outside the
+    regions). The backward of RMSNorm is PyTorch ops: no launch."""
+    n, layers = steps * n_micro, cfg.n_layers
+    return {"rmsnorm": n * (2 * layers + 1 + 2 * layers), "rmsnorm/residual": 0,
+            "flash_fwd": n * 2 * layers, "flash_bwd_dq": n * layers,
+            "flash_bwd_dkv": n * layers}
+
+
+def train_phase(torch, np, dev, root):
+    """Materialize the training data by S/C on the card, run stablelm-3b at
+    full width and depth through ``run_training``, profile one more step,
+    then reduced GQA card against CPU and a checkpoint round trip. Returns
+    the launch counts of the ``run_training`` run."""
+    import copy
+    import dataclasses as dc
+
+    from repro_torch import configs, models
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import BatchIterator, DataConfig, materialize_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.train.loop import LoopConfig, run_training
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    # -- the data, by S/C on the card
+    t0 = time.perf_counter()
+    dcfg = DataConfig(**TRAIN_DATA)
+    data = materialize_dataset(dcfg, root / "data", device=dev)
+    rep = data["report"]
+    if not rep.peak_catalog_bytes <= dcfg.catalog_budget_bytes:
+        raise AssertionError(f"data pipeline: peak catalog {rep.peak_catalog_bytes} "
+                             f"exceeds budget {dcfg.catalog_budget_bytes}")
+    missing = {n.name for n in data["workload"].nodes} - set(data["store"].manifest())
+    if missing:
+        raise AssertionError(f"data pipeline: manifest lacks {sorted(missing)}")
+    packed = int(data["store"].read("index")["total"][0])
+    log(f"train: data {dcfg.n_shards} shards x {dcfg.docs_per_shard} docs x "
+        f"{dcfg.doc_len} tokens -> {packed} rows of {dcfg.seq_len} on {dev}: S/C "
+        f"{rep.elapsed:.3f}s, plan flagged {sorted(data['plan'].flagged)} order "
+        f"{list(data['plan'].order)}, catalog_hits {rep.catalog_hits}, peak catalog "
+        f"{rep.peak_catalog_bytes:.0f} B within budget {dcfg.catalog_budget_bytes:.0f} B; "
+        f"{time.perf_counter() - t0:.3f}s")
+
+    # -- stablelm-3b at full width and depth through run_training
+    cfg = dc.replace(configs.get_config(TRAIN_ARCH), microbatch_size=TRAIN_MICRO)
+    n_micro = TRAIN_ROWS // TRAIN_MICRO
+    metrics = []
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_training(
+        cfg, LoopConfig(steps=TRAIN_STEPS, batch_size=TRAIN_ROWS, ckpt_every=TRAIN_STEPS + 1,
+                        ckpt_dir=str(root / "ckpt"), data_dir=str(root / "data")),
+        dcfg, AdamWConfig(),
+        on_step=lambda step, m: metrics.append(
+            {"step": step, **{k: float(v) for k, v in m.items()}}),
+        device=dev)
+    run_s = time.perf_counter() - t0
+    launches = {**ops.launches, **ops.variant_launches}
+    peak = torch.cuda.max_memory_allocated()
+    want = predicted_train_launches(cfg, TRAIN_STEPS, n_micro)
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, predicted {want}")
+    if len(metrics) != TRAIN_STEPS or not all(
+            math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics):
+        raise AssertionError(f"training metrics not finite: {metrics}")
+    state = res["state"]
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, config counts {cfg.param_count()}")
+    state_bytes = sum(p.nbytes for p in state["params"].parameters()) + sum(
+        t.nbytes for key in ("m", "v") for t in state["opt"][key].values())
+    ckpt_bytes = sum(f.stat().st_size for f in (root / "ckpt").rglob("*") if f.is_file())
+    tokens = TRAIN_ROWS * TRAIN_SEQ
+    log(f"train: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.head_dim_} d_ff {cfg.d_ff} vocab "
+        f"{cfg.vocab_size} {cfg.dtype}, moments {cfg.opt_state_dtype}, remat "
+        f"{cfg.remat_policy}: {n_params} parameters, state {state_bytes} B")
+    for m, secs in zip(metrics, res["step_seconds"]):
+        log(f"train: step {m['step']} loss {m['loss']} grad_norm {m['grad_norm']} lr "
+            f"{m['lr']} seconds {secs:.4f} tokens/s {tokens / secs:.1f}")
+    log(f"train: {TRAIN_STEPS} steps x {TRAIN_ROWS} rows x {TRAIN_SEQ} tokens in {n_micro} "
+        f"microbatches: run_training {run_s:.3f}s, steps {sum(res['step_seconds']):.3f}s, "
+        f"max_memory_allocated {peak} B; final write-behind save {ckpt_bytes} B in "
+        f"{res['ckpt'].write_seconds:.3f}s; launches {launches} as predicted")
+
+    # -- one more step under the profiler
+    it = BatchIterator(root / "data", dcfg, TRAIN_ROWS, device=dev)
+    batch = it.next_batch()
+    step_fn = make_train_step(cfg, AdamWConfig(), global_rows=TRAIN_ROWS)
+    wall, by_name, _ = device_kernel_times(torch, lambda: step_fn(state, batch))
+    log_breakdown(f"train step ({TRAIN_ROWS} x {TRAIN_SEQ} tokens)", wall, by_name,
+                  phase="train")
+    del res, state, step_fn, batch
+    torch.cuda.empty_cache()
+    shutil.rmtree(root / "ckpt")
+
+    # -- card against CPU: reduced stablelm-3b with GQA, f32
+    t0 = time.perf_counter()
+    scfg = configs.get_config(TRAIN_ARCH).reduced(dtype="float32", n_heads=8, n_kv_heads=2)
+    cpu_model = models.init_params(scfg, torch.Generator().manual_seed(3), "cpu")
+    places = {"cpu": torch.device("cpu"), "card": dev}
+    states = {"cpu": init_train_state(scfg, cpu_model),
+              "card": init_train_state(scfg, copy.deepcopy(cpu_model).to(dev))}
+    rng = np.random.default_rng(8)
+    seqs = [torch.from_numpy(rng.integers(0, scfg.vocab_size, (4, 65)).astype(np.int32))
+            for _ in range(2)]
+
+    def first_grads(where):
+        mb = {"tokens": seqs[0][:2, :-1].to(places[where]),
+              "labels": seqs[0][:2, 1:].to(places[where])}
+        model = states[where]["params"]
+        loss, _ = models.lm_loss(scfg, model, mb)
+        return [g.cpu() for g in torch.autograd.grad(loss, list(model.parameters()))]
+
+    for g_card, g_cpu in zip(first_grads("card"), first_grads("cpu")):
+        if not bool(torch.isclose(g_card, g_cpu, rtol=SMALL_TRAIN_TOL["grad_rtol"],
+                                  atol=SMALL_TRAIN_TOL["grad_atol"]).all()):
+            raise AssertionError(f"card vs CPU gradients differ by up to "
+                                 f"{float((g_card - g_cpu).abs().max())}")
+    runs = {}
+    for where, st in states.items():
+        step_fn = make_train_step(scfg, AdamWConfig(**SMALL_TRAIN_OPT), global_rows=4)
+        ops.reset_launches()
+        mets = []
+        for s_ in seqs:
+            b_ = {"tokens": s_[:, :-1].to(places[where]),
+                  "labels": s_[:, 1:].to(places[where])}
+            st, m = step_fn(st, b_)
+            mets.append({k: float(v) for k, v in m.items()})
+        states[where] = st
+        runs[where] = (mets, dict(ops.launches))
+    if any(runs["cpu"][1].values()) or not all(runs["card"][1].values()):
+        raise AssertionError(f"launches: CPU {runs['cpu'][1]}, card {runs['card'][1]}")
+    for mc, mg in zip(runs["cpu"][0], runs["card"][0]):
+        for key in ("loss", "grad_norm"):
+            if not math.isclose(mg[key], mc[key], rel_tol=SMALL_TRAIN_TOL["loss"]):
+                raise AssertionError(f"card vs CPU {key}: {mg[key]} vs {mc[key]}")
+    cpu_p = dict(states["cpu"]["params"].named_parameters())
+    diff = torch.cat([(p.detach().cpu() - cpu_p[n].detach()).abs().reshape(-1)
+                      for n, p in states["card"]["params"].named_parameters()])
+    worst = {"params": float(diff.max()),
+             "params_share": float((diff > SMALL_TRAIN_TOL["params_close"]).float().mean())}
+    for key in ("m", "v"):
+        worst[key] = max(float((t.cpu() - states["cpu"]["opt"][key][n]).abs().max())
+                         for n, t in states["card"]["opt"][key].items())
+    if worst["params"] > SMALL_TRAIN_TOL["params_max"] or any(
+            worst[k] > SMALL_TRAIN_TOL[k] for k in ("params_share", "m", "v")):
+        raise AssertionError(f"card vs CPU state differs: {worst} (tolerance {SMALL_TRAIN_TOL})")
+    log(f"train: reduced {TRAIN_ARCH} (GQA 8/2, f32) card vs CPU: first-microbatch "
+        f"gradients within {SMALL_TRAIN_TOL['grad_atol']} + {SMALL_TRAIN_TOL['grad_rtol']}"
+        f"·|g|; 2 steps of 2 microbatches: losses {[m['loss'] for m in runs['card'][0]]} vs "
+        f"{[m['loss'] for m in runs['cpu'][0]]}, grad norms within "
+        f"{SMALL_TRAIN_TOL['loss']} relative; worst abs diff {worst}; card launches "
+        f"{runs['card'][1]}, CPU none; {time.perf_counter() - t0:.3f}s")
+
+    # -- a checkpoint round trip of the card state, bitwise
+    mgr = CheckpointManager(root / "small_ckpt")
+    saved = {"train": states["card"], "data": {"epoch": 1, "cursor": 8, "seed": 0}}
+    mgr.save(saved, 2, blocking=True)
+    template = {"train": init_train_state(scfg, models.init_params(
+                    scfg, torch.Generator(device=dev).manual_seed(9), dev)),
+                "data": {"epoch": 0, "cursor": 0, "seed": 0}}
+    restored = mgr.restore(template)
+
+    def tensors(tr):
+        return [*tr["train"]["params"].parameters(), *tr["train"]["opt"]["m"].values(),
+                *tr["train"]["opt"]["v"].values(), tr["train"]["opt"]["step"].reshape(1)]
+
+    if not bitwise_equal(torch, [t.detach() for t in tensors(restored)],
+                         [t.detach() for t in tensors(saved)]) or \
+            restored["data"] != saved["data"]:
+        raise AssertionError("checkpoint round trip is not bitwise")
+    log(f"train: checkpoint save -> restore of the card state bitwise "
+        f"({len(tensors(saved))} tensors, step {int(restored['train']['opt']['step'])})")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -939,13 +1318,22 @@ def main() -> int:
     serve_launches, oracle_launches = serve_phase(torch, np, dev)
     log(f"phase serve {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 8. kernels line ------------------------------------------------------------
+    # -- 8. training ----------------------------------------------------------------
+    t_phase = time.perf_counter()
+    train_root = HERE / "build" / "chip_smoke_train"
+    shutil.rmtree(train_root, ignore_errors=True)
+    log(f"disk free under {train_root.parent}: "
+        f"{shutil.disk_usage(train_root.parent).free:.3e} B")
+    train_launches = train_phase(torch, np, dev, train_root)
+    log(f"phase train {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 9. kernels line ------------------------------------------------------------
     # Each kernel reports the times of the case its path's calls take (the
-    # data plane's 16.7M-row columns, RMSNorm on the bf16 serving prefill, the
-    # flash forward on the f32 oracle's 544 positions) and the worst error
-    # over all its cases. The residual RMSNorm's launches are its variant's
-    # share of the RMSNorm count; the plain RMSNorm's are the rest.
-    model_launches = {k: serve_launches[k] + oracle_launches[k]
+    # data plane's 16.7M-row columns, RMSNorm on the bf16 serving prefill,
+    # the flash kernels on the bf16 training shape) and the worst error over
+    # all its cases. The residual RMSNorm's launches are its variant's share
+    # of the RMSNorm count; the plain RMSNorm's are the rest.
+    model_launches = {k: serve_launches[k] + oracle_launches[k] + train_launches[k]
                       for k in serve_launches}
     model_launches["rmsnorm_residual"] = model_launches.pop("rmsnorm/residual")
     model_launches["rmsnorm"] -= model_launches["rmsnorm_residual"]
@@ -954,7 +1342,9 @@ def main() -> int:
                 "hash64": "uniform", "pid_hist": "uniform_P8",
                 "rmsnorm": "2048x5120_bfloat16",
                 "rmsnorm_residual": "2048x5120_bfloat16",
-                "flash_fwd": f"{SERVE_BATCH}x32/8x544x544x160_causal_float32"}
+                "flash_fwd": "2x32/32x4096x4096x80_causal_bfloat16",
+                "flash_bwd_dq": "2x32/32x4096x4096x80_causal_bfloat16",
+                "flash_bwd_dkv": "2x32/32x4096x4096x80_causal_bfloat16"}
     kernels = []
     for kernel, case in headline.items():
         row = next(r for r in rows if r["kernel"] == kernel and r["case"] == case)
@@ -968,7 +1358,8 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
     log(f"launches: main path {main['launches']}; partitioned path {part_launches}; "
-        f"serving {serve_launches}; serving oracle {oracle_launches}")
+        f"serving {serve_launches}; serving oracle {oracle_launches}; "
+        f"training {train_launches}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -58,27 +58,61 @@ def _weight(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
 
+def named_reference_arrays(cfg: ModelConfig, tree: Mapping) -> dict[str, np.ndarray]:
+    """A JAX parameter tree of numpy arrays (``embed``, ``blocks.subI.{norm1,
+    mixer.{wq,wk,wv,wo}, norm2, ffn.{wi,wo}}`` stacked on a leading group
+    axis, ``final_norm`` and ``lm_head`` unless embeddings are tied) keyed by
+    the port's parameter names (``Transformer.named_parameters()`` order):
+    group g's sub-layer i is layer ``g * len(cfg.pattern) + i``. The same
+    mapping carries the AdamW moments, which share the tree's structure."""
+    check_supported(cfg)
+    out = {"embed": np.asarray(tree["embed"])}
+    for g in range(cfg.n_groups):
+        for i in range(len(cfg.pattern)):
+            sub, n = tree["blocks"][f"sub{i}"], g * len(cfg.pattern) + i
+            out[f"layers.{n}.norm1"] = np.asarray(sub["norm1"][g])
+            for k in ("wq", "wk", "wv", "wo"):
+                out[f"layers.{n}.mixer.{k}"] = np.asarray(sub["mixer"][k][g])
+            out[f"layers.{n}.norm2"] = np.asarray(sub["norm2"][g])
+            for k in ("wi", "wo"):
+                out[f"layers.{n}.ffn.{k}"] = np.asarray(sub["ffn"][k][g])
+    out["final_norm"] = np.asarray(tree["final_norm"])
+    if not cfg.tie_embeddings:
+        out["lm_head"] = np.asarray(tree["lm_head"])
+    return out
+
+
 def params_from_reference(cfg: ModelConfig, tree: Mapping,
                           device: str | torch.device | None = None) -> Transformer:
     """The port's model on ``device`` (default: the card) with the weights
     of a JAX parameter tree of numpy arrays (``jax.tree.map(np.asarray,
-    repro.models.init_params(cfg, key))``): ``embed``, ``blocks.subI.{norm1,
-    mixer.{wq,wk,wv,wo}, norm2, ffn.{wi,wo}}`` stacked on a leading group
-    axis, ``final_norm`` and ``lm_head`` unless embeddings are tied. Group g's
-    sub-layer i becomes layer ``g * len(cfg.pattern) + i``; every weight
-    keeps its ``x @ w`` orientation."""
+    repro.models.init_params(cfg, key))``; see :func:`named_reference_arrays`).
+    Every weight keeps its ``x @ w`` orientation and its bits."""
     dev = resolve_device(device)
-    check_supported(cfg)
-    w = lambda a: _weight(np.asarray(a), dev)  # noqa: E731
-    layers = []
-    for g in range(cfg.n_groups):
-        for i in range(len(cfg.pattern)):
-            sub = tree["blocks"][f"sub{i}"]
-            mix, ffn = sub["mixer"], sub["ffn"]
-            layers.append(Block(
-                w(sub["norm1"][g]),
-                L.Attention(*(w(mix[k][g]) for k in ("wq", "wk", "wv", "wo"))),
-                w(sub["norm2"][g]),
-                L.MLP(w(ffn["wi"][g]), w(ffn["wo"][g]))))
-    lm_head = None if cfg.tie_embeddings else w(tree["lm_head"])
-    return Transformer(cfg, w(tree["embed"]), layers, w(tree["final_norm"]), lm_head)
+    w = {k: _weight(a, dev) for k, a in named_reference_arrays(cfg, tree).items()}
+    layers = [Block(w[f"layers.{n}.norm1"],
+                    L.Attention(*(w[f"layers.{n}.mixer.{k}"] for k in ("wq", "wk", "wv", "wo"))),
+                    w[f"layers.{n}.norm2"],
+                    L.MLP(w[f"layers.{n}.ffn.wi"], w[f"layers.{n}.ffn.wo"]))
+              for n in range(cfg.n_layers)]
+    return Transformer(cfg, w["embed"], layers, w["final_norm"], w.get("lm_head"))
+
+
+def train_state_from_reference(cfg: ModelConfig, state_tree: Mapping,
+                               device: str | torch.device | None = None) -> dict:
+    """The port's train state (``train.init_train_state``'s structure) on
+    ``device`` (default: the card) from a JAX train state of numpy arrays
+    (``jax.tree.map(np.asarray, state)`` of ``{"params", "opt": {"m", "v",
+    "step"}}``): the model made trainable, and the moments and the int32
+    step count, every value bit for bit."""
+    dev = resolve_device(device)
+    model = params_from_reference(cfg, state_tree["params"], dev).requires_grad_(True)
+    opt = state_tree["opt"]
+    return {
+        "params": model,
+        "opt": {
+            "m": {k: _weight(a, dev) for k, a in named_reference_arrays(cfg, opt["m"]).items()},
+            "v": {k: _weight(a, dev) for k, a in named_reference_arrays(cfg, opt["v"]).items()},
+            "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32, device=dev),
+        },
+    }

@@ -1,8 +1,9 @@
 """Model kernels: hand-written CUDA for the card, plain PyTorch versions for
 the CPU and as the oracle (``ref``). The entry points are ``ops.rmsnorm``,
-``ops.flash_attention`` and ``flash_attention_fwd`` (with the log-sum-exp);
+``ops.flash_attention``, ``flash_attention_fwd`` (with the log-sum-exp) and
+``flash_attention_bwd``;
 the submodules ``rmsnorm`` and ``flash_attention`` keep their names here."""
 from . import ops, ref
-from .flash_attention import flash_attention_fwd
+from .flash_attention import flash_attention_bwd, flash_attention_fwd
 
-__all__ = ["ops", "ref", "flash_attention_fwd"]
+__all__ = ["ops", "ref", "flash_attention_fwd", "flash_attention_bwd"]

@@ -1,14 +1,20 @@
-"""Flash-attention forward: the counterpart of
-``repro.kernels.flash_attention.flash_attention_fwd``.
+"""Flash attention, forward and backward: the counterpart of
+``repro.kernels.flash_attention`` (``flash_attention_fwd``,
+``flash_attention_bwd`` and the ``jax.custom_vjp`` ``flash_attention``).
 
-On CPU tensors :func:`flash_attention_fwd` runs the plain version
-(``ref.attention_with_lse``); on CUDA tensors it launches the hand-written
-kernel of ``csrc/flash_attention.cu`` (one launch, counted under
-``flash_fwd``), or raises. The kernel takes q, k and v with any batch, head
-and row strides as long as each row is contiguous, so the model's
-transposed views reach it without a copy. The backward kernels and the
-``torch.autograd.Function`` come with the training slice; on the serving
-path the forward runs under ``torch.inference_mode()``.
+On CPU tensors :func:`flash_attention_fwd` and :func:`flash_attention_bwd`
+run the plain versions (``ref.attention_with_lse``, ``ref.attention_bwd``);
+on CUDA tensors they launch the hand-written kernels of
+``csrc/flash_attention.cu`` (one launch each of ``flash_fwd``, and of
+``flash_bwd_dq`` and ``flash_bwd_dkv``), or raise. The kernels take q, k, v
+and do with any batch, head and row strides as long as each row is
+contiguous, so the model's transposed views, and the transposed gradient
+autograd hands the backward, reach them without a copy.
+:class:`FlashAttention` is the ``torch.autograd.Function`` around the pair:
+its forward saves ``q, k, v, o, lse``; its backward computes
+``δ = rowsum(do ⊙ o)`` in PyTorch, as the reference does in jnp outside its
+kernels, and returns ``dk`` and ``dv`` in k's own kv-head layout (the dkv
+kernel sums each kv head's query heads itself).
 """
 from __future__ import annotations
 
@@ -35,24 +41,36 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: kv {tuple(k.shape)} does not fit q {tuple(q.shape)}")
 
 
-def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                causal: bool, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+def _strides(*tensors: torch.Tensor) -> ctypes.Array:
+    """Batch, head and row strides of each (b, h, s, d) tensor, in elements,
+    for a C entry point; each row must be contiguous."""
+    for t in tensors:
+        if t.stride(3) != 1:
+            raise ValueError("flash_attention: q, k, v rows must be contiguous")
+    flat = [n for t in tensors for n in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must share one dtype of {DTYPES}")
-    b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    b, hq, _, d = q.shape
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {d} not in 1..{MAX_HEAD_DIM}")
     if b > 65535 or hq > 65535:
         raise ValueError("flash_attention: batch and heads must be < 65536")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"flash_attention: {name} rows must be contiguous")
+
+
+def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    _check_cuda(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    strides = _strides(q, k, v)
     o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     native.launch("flash_fwd", "sc_flash_fwd", q.device,
                   ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse),
                   *(ctypes.c_int(n) for n in (b, hq, hkv, sq, sk, d)),
@@ -74,3 +92,89 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if on_cpu(q, k, v):
         return ref.attention_with_lse(q, k, v, causal=causal, scale=scale)
     return _flash_cuda(q, k, v, causal, scale)
+
+
+def _launch_bwd(kernel: str, fn: str, q, k, v, do, lse, delta, causal: bool,
+                scale: float, *outputs: torch.Tensor) -> None:
+    """One launch of a backward kernel writing ``outputs`` (``lse`` and
+    ``delta`` contiguous f32; the rest checked by the caller)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    strides = _strides(q, k, v, do)
+    native.launch(kernel, fn, q.device,
+                  ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
+                  *(ptr(t) for t in outputs),
+                  *(ctypes.c_int(n) for n in (b, hq, hkv, sq, sk, d)),
+                  ctypes.cast(strides, ctypes.c_void_p), ctypes.c_float(scale),
+                  ctypes.c_int(int(causal)), ctypes.c_int(cuda.DTYPE_CODES[q.dtype]))
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal: bool, scale: float) -> torch.Tensor:
+    """dq from one ``flash_bwd_dq`` launch (none when q is empty)."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel():
+        _launch_bwd("flash_bwd_dq", "sc_flash_bwd_dq", q, k, v, do, lse, delta, causal,
+                    scale, dq)
+    return dq
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """dk, dv from one ``flash_bwd_dkv`` launch (none when k is empty)."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    if dk.numel():
+        _launch_bwd("flash_bwd_dkv", "sc_flash_bwd_dkv", q, k, v, do, lse, delta, causal,
+                    scale, dk, dv)
+    return dk, dv
+
+
+def _bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+              lse: torch.Tensor, do: torch.Tensor, causal: bool, scale: float
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    _check_cuda(q, k, v)
+    if do.dtype != q.dtype:
+        raise TypeError(f"flash_attention_bwd: do is {do.dtype}, q {q.dtype}")
+    if do.stride(3) != 1:  # e.g. an expanded gradient: one copy, rows contiguous
+        do = do.contiguous()
+    lse = lse.float().contiguous()
+    delta = (do.float() * o.float()).sum(-1)          # (b, hq, sq) f32, contiguous
+    dq = _launch_dq(q, k, v, do, lse, delta, causal, scale)
+    return (dq, *_launch_dkv(q, k, v, do, lse, delta, causal, scale))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention_fwd` for the output
+    gradient ``do`` (q's shape and type), from its saved ``o`` and ``lse``:
+    dq in q's layout, dk and dv in k's (summed over each kv head's query
+    heads), each in its input's type, f32 accumulation."""
+    _check(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do {tuple(do.shape)}, "
+                         f"lse {tuple(lse.shape)} do not fit q {tuple(q.shape)}")
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if on_cpu(q, k, v, o, lse, do):
+        return ref.attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    return _bwd_cuda(q, k, v, o, lse, do, causal, scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``o = attention(q, k, v)`` with the flash backward as its gradient:
+    the counterpart of the ``jax.custom_vjp`` at ``flash_attention.py:325``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float | None):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None, None

@@ -5,8 +5,10 @@ wrappers (``kernels/rmsnorm.py``, ``kernels/flash_attention.py``) run these;
 on the card ``chip_smoke.py`` and the card-only tests hold each kernel
 against them. ``attention`` is also the model's attention over a KV cache,
 which the JAX package computes outside Pallas too. Every one computes in f32
-and returns the input's type, as the reference does. ``ssd_scan_*`` comes
-with the training slice.
+and returns the input's type, as the reference does. ``attention_bwd`` is
+the flash-attention backward's function; RMSNorm's gradient has no kernel
+(``kernels/rmsnorm.py:rmsnorm_bwd``). ``ssd_scan_*`` comes with the Mamba-2
+slice.
 """
 from __future__ import annotations
 
@@ -73,6 +75,38 @@ def attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bkgqT,bkTd->bkgqd", p, v.float())
     lse = lse.masked_fill(empty, float("inf"))
     return out.reshape(b, hq, sq, d).to(q.dtype), lse.reshape(b, hq, sq)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  causal: bool = True, scale: float | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash-attention backward's function (``flash_attention_bwd``,
+    ``flash_attention.py:258``, with the wrapper's group sum at :343-356):
+    ``dq`` (b, hq, sq, d), ``dk`` and ``dv`` (b, hkv, sk, d), each in its
+    input's type, from the forward's ``o`` and f32 ``lse``. In f32:
+    ``p = exp(s·scale - lse)`` (0 where masked, and on a row with
+    ``lse = +inf``), ``δ = rowsum(do ⊙ o)``, ``ds = p ⊙ (do·vᵀ - δ)·scale``,
+    ``dq = ds·k``, ``dk = dsᵀ·q`` and ``dv = pᵀ·do``, the last two summed over
+    each kv head's query heads with no repeated k/v."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    p = _scores(q, k, scale)                          # (b, hkv, g, sq, sk)
+    p.sub_(lse.reshape(b, hkv, g, sq, 1)).exp_()
+    if causal:
+        col = torch.arange(sk, device=q.device)
+        row = torch.arange(sq, device=q.device)
+        p.masked_fill_(col[None, :] > row[:, None], 0.0)
+    dof = do.reshape(b, hkv, g, sq, d).float()
+    delta = (dof * o.reshape(b, hkv, g, sq, d).float()).sum(-1, keepdim=True)
+    ds = torch.einsum("bkgqd,bkTd->bkgqT", dof, v.float())
+    ds.sub_(delta).mul_(p).mul_(scale)
+    dq = torch.einsum("bkgqT,bkTd->bkgqd", ds, k.float())
+    dk = torch.einsum("bkgqT,bkgqd->bkTd", ds, q.reshape(b, hkv, g, sq, d).float())
+    dv = torch.einsum("bkgqT,bkgqd->bkTd", p, dof)
+    return dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,

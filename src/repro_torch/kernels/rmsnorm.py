@@ -6,6 +6,14 @@ CUDA tensors it launches the hand-written kernel of ``csrc/rmsnorm.cu``,
 which covers both Pallas kernels (``_rmsnorm_kernel`` and, with a residual,
 ``_rmsnorm_res_kernel``), or raises. One launch per call, counted under
 ``rmsnorm`` (and ``rmsnorm/residual``).
+
+:class:`RMSNorm` is its ``torch.autograd.Function``. The JAX package has no
+gradient for its Pallas RMSNorm (``jax.grad`` through it fails to
+linearise) and trains only under its XLA dispatch, differentiating
+``ref.rmsnorm``; no TPU backward kernel exists to port. So the Function's
+forward is the kernel (or the plain version) and its backward is the
+closed-form derivative in PyTorch ops (:func:`rmsnorm_bwd`), the same
+derivative the reference's XLA path takes.
 """
 from __future__ import annotations
 
@@ -54,3 +62,38 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
     if on_cpu(x, w, residual):
         return ref.rmsnorm(x, w, eps=eps, residual=residual)
     return _rmsnorm_cuda(x, w, eps, residual)
+
+
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6,
+                residual: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw)`` of :func:`rmsnorm` for the output gradient ``dy``, in
+    f32: with ``x̂ = x·r``, ``r = rsqrt(mean(x²) + eps)`` and ``g = dy ⊙ w``,
+    ``dx = r·(g - x̂·mean(g ⊙ x̂))`` and ``dw = Σ_rows dy ⊙ x̂``. ``dx`` is in
+    x's type (and is the residual's gradient too), ``dw`` in w's."""
+    xf = x.float()
+    if residual is not None:
+        xf = xf + residual.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    dyf = dy.float()
+    g = dyf * w.float()
+    dx = r * (g - xhat * torch.mean(g * xhat, dim=-1, keepdim=True))
+    dw = (dyf * xhat).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+class RMSNorm(torch.autograd.Function):
+    """:func:`rmsnorm` with :func:`rmsnorm_bwd` as its gradient; it saves
+    ``x``, ``w`` and the residual and recomputes the rsqrt."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps: float, residual):
+        ctx.save_for_backward(x, w, residual)
+        ctx.eps = eps
+        return rmsnorm(x, w, eps=eps, residual=residual)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, residual = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, dy, ctx.eps, residual)
+        return dx, dw, None, None if residual is None else dx

@@ -1,19 +1,27 @@
-"""Config-driven decoder LM on PyTorch (the serving path of dense decoders)."""
+"""Config-driven decoder LM on PyTorch (serving and training of dense decoders)."""
 from . import layers
 from .transformer import (
+    ACT_NAMES,
+    MOE_AUX_COEF,
+    REMAT_POLICIES,
     Transformer,
     count_params_analytic,
     decode_step,
     embed_inputs,
     forward,
     init_params,
+    lm_loss,
     make_cache,
     prefill,
 )
 
 __all__ = [
     "layers",
+    "ACT_NAMES",
+    "MOE_AUX_COEF",
+    "REMAT_POLICIES",
     "Transformer",
+    "lm_loss",
     "forward",
     "embed_inputs",
     "init_params",

@@ -1,5 +1,5 @@
-"""The decoder LM on PyTorch: init / forward / prefill / decode, the
-counterpart of ``repro.models.transformer`` for the serving path.
+"""The decoder LM on PyTorch: init / forward / loss / prefill / decode, the
+counterpart of ``repro.models.transformer`` for dense decoders.
 
 The model is an ``nn.Module`` (:class:`Transformer`) holding one
 :class:`Block` per layer in an ``nn.ModuleList``; the JAX package stacks
@@ -9,22 +9,46 @@ tokens, ...)``) so the tests compare like with like. The decode cache is a
 list with one ``{"k", "v"}`` per layer, written in place (the JAX package
 returns a new stacked cache; in place saves the second copy).
 
-Served here: dense decoders whose layers are all ("attn", "mlp") and whose
-inputs are tokens. MoE and Mamba-2 layers, the VLM and audio frontends, the
-loss and rematerialisation come with later slices of the port and raise
+Served and trained here: dense decoders whose layers are all ("attn",
+"mlp") and whose inputs are tokens. MoE and Mamba-2 layers and the VLM and
+audio frontends come with later slices of the port and raise
 ``NotImplementedError``.
+
+Rematerialisation (``cfg.remat_policy``) wraps each layer of a forward that
+records a graph in ``torch.utils.checkpoint`` (non-reentrant), the
+counterpart of ``_remat_wrap`` (``transformer.py:148``): ``none`` saves
+everything; ``block`` makes one checkpoint region per layer, which saves
+only the layer's input; ``dots`` saves the outputs of the matrix products
+(``create_selective_checkpoint_contexts``, as ``checkpoint_dots``);
+``planner`` saves exactly the named activations the planner chose (and the
+layer input) by cutting the layer into regions at them. Of ``ACT_NAMES``
+only ``mixer_out`` is read by a backward (the MLP's recompute needs
+``x + mixer_out``); ``ffn_out`` and ``block_out`` feed sums, whose backward
+saves nothing, so a cut there changes nothing. Under ``torch.no_grad`` or
+``inference_mode`` no region is made.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels import ops
 from . import layers as L
+
+MOE_AUX_COEF = 0.01
+# the named activations a remat policy or the activation planner may save
+ACT_NAMES = ("mixer_out", "ffn_out", "block_out")
+REMAT_POLICIES = ("none", "block", "dots", "planner")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -33,7 +57,7 @@ def check_supported(cfg: ModelConfig) -> None:
         if mixer != "attn":
             raise NotImplementedError(
                 f"{cfg.name}: the {mixer!r} (Mamba-2 SSD) mixer comes with the "
-                "training slice of the port")
+                "Mamba-2 slice of the port")
         if mlp != "mlp":
             raise NotImplementedError(
                 f"{cfg.name}: the {mlp!r} feed-forward (MoE) comes with a later "
@@ -113,6 +137,60 @@ def embed_inputs(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     return params.embed[tokens]
 
 
+def _mixer_out(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: torch.Tensor,
+               cache: dict | None = None, cache_pos: int | None = None) -> torch.Tensor:
+    h = ops.rmsnorm(x, layer.norm1, eps=cfg.norm_eps)
+    return L.attention_forward(cfg, layer.mixer, h, positions, cache=cache,
+                               cache_pos=cache_pos)
+
+
+def _ffn_out(cfg: ModelConfig, layer: Block, x: torch.Tensor) -> torch.Tensor:
+    return L.mlp_forward(cfg.mlp_kind, layer.ffn,
+                         ops.rmsnorm(x, layer.norm2, eps=cfg.norm_eps))
+
+
+def _block(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: torch.Tensor,
+           cache: dict | None = None, cache_pos: int | None = None) -> torch.Tensor:
+    """One layer: ``x + mixer_out``, then ``+ ffn_out`` (= ``block_out``)."""
+    x = x + _mixer_out(cfg, layer, x, positions, cache, cache_pos)
+    return x + _ffn_out(cfg, layer, x)
+
+
+def _ffn_after(cfg: ModelConfig, layer: Block, x: torch.Tensor,
+               y: torch.Tensor) -> torch.Tensor:
+    return _ffn_out(cfg, layer, x + y)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: torch.Tensor,
+                 save_names: tuple[str, ...]) -> torch.Tensor:
+    """:func:`_block` under ``cfg.remat_policy`` (see the module docstring).
+    No region uses random numbers, so none saves the RNG state."""
+    policy = cfg.remat_policy
+    if policy == "none":
+        return _block(cfg, layer, x, positions)
+    remat = functools.partial(checkpoint, use_reentrant=False, preserve_rng_state=False)
+    if policy == "block":
+        return remat(_block, cfg, layer, x, positions)
+    if policy == "dots":
+        return remat(_block, cfg, layer, x, positions,
+                     context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                  _save_dots))
+    if policy == "planner":
+        if "mixer_out" not in (save_names or ACT_NAMES):
+            return remat(_block, cfg, layer, x, positions)
+        y = remat(_mixer_out, cfg, layer, x, positions)
+        return (x + y) + remat(_ffn_after, cfg, layer, x, y)
+    raise ValueError(f"remat policy {policy!r} not in {REMAT_POLICIES}")
+
+
 def forward(
     cfg: ModelConfig,
     params: Transformer,
@@ -120,11 +198,14 @@ def forward(
     patch_embeds: torch.Tensor | None = None,
     cache: list | None = None,       # one {"k", "v"} per layer
     cache_pos: int | None = None,
+    save_names: tuple[str, ...] = (),
 ):
     """Returns ``(logits, moe_aux, cache)``: logits (b, s, vocab_padded)
     with -1e9 on the padded vocabulary; ``moe_aux`` is 0 (no MoE layers
     here). Without a cache every attention goes through the flash-attention
-    forward; with one, k/v are written at ``cache_pos`` in place."""
+    forward, and a forward that records a graph rematerialises each layer
+    under ``cfg.remat_policy`` (``save_names``: the planner's choice, for
+    ``planner``); with a cache, k/v are written at ``cache_pos`` in place."""
     x = embed_inputs(cfg, params, tokens, patch_embeds)
     b, s, _ = x.shape
     start = 0 if cache_pos is None else int(cache_pos)
@@ -132,13 +213,13 @@ def forward(
     if cache is not None and len(cache) != len(params.layers):
         raise ValueError(f"cache has {len(cache)} layers, model {len(params.layers)}")
 
+    remat = cache is None and torch.is_grad_enabled()
     for i, layer in enumerate(params.layers):
-        h = ops.rmsnorm(x, layer.norm1, eps=cfg.norm_eps)
-        x = x + L.attention_forward(cfg, layer.mixer, h, positions,
-                                    cache=None if cache is None else cache[i],
-                                    cache_pos=cache_pos)
-        h2 = ops.rmsnorm(x, layer.norm2, eps=cfg.norm_eps)
-        x = x + L.mlp_forward(cfg.mlp_kind, layer.ffn, h2)
+        if remat:
+            x = _remat_block(cfg, layer, x, positions, save_names)
+        else:
+            x = _block(cfg, layer, x, positions,
+                       None if cache is None else cache[i], cache_pos)
 
     x = ops.rmsnorm(x, params.final_norm, eps=cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
@@ -151,8 +232,31 @@ def forward(
 
 
 # ---------------------------------------------------------------------------
-# prefill / decode
+# loss / prefill / decode
 # ---------------------------------------------------------------------------
+
+def lm_loss(cfg: ModelConfig, params: Transformer, batch: dict,
+            save_names: tuple[str, ...] = ()) -> tuple[torch.Tensor, dict]:
+    """Mean next-token NLL over labels >= 0, in f32, plus the z-loss
+    ``1e-4·mean(logz²)`` and ``MOE_AUX_COEF·aux / n_layers`` (0 here), as
+    ``transformer.py:233``. Returns ``(total, {"nll", "zloss", "moe_aux",
+    "ntok"})``."""
+    logits, aux, _ = forward(cfg, params, batch["tokens"],
+                             patch_embeds=batch.get("patch_embeds"),
+                             save_names=save_names)
+    labels = batch["labels"]
+    logits = logits.float()
+    mask = (labels >= 0).float()
+    safe = labels.clamp(min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - ll) * mask
+    ntok = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / ntok
+    zloss = 1e-4 * torch.sum((logz * mask) ** 2) / ntok
+    total = loss + zloss + MOE_AUX_COEF * aux / max(cfg.n_layers, 1)
+    return total, {"nll": loss, "zloss": zloss, "moe_aux": aux, "ntok": ntok}
+
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: str | torch.device | None = None) -> list[dict]:

@@ -3,10 +3,12 @@ PyTorch versions, which ``tests/test_torch_dataplane.py`` and
 ``tests/test_torch_model_kernels.py`` hold against the JAX package) at
 ragged sizes, the wrappers' refusals, the launch counters, a small refresh
 round and a small partitioned incremental scenario card against CPU, and
-small-model serving card against CPU. The data-plane kernels are compared
-bitwise; RMSNorm and the flash forward within the JAX kernel tests'
-tolerances (1e-5 / 2e-2 and 2e-5 / 3e-2 in f32 / bf16). Needs a card; every
-test skips without one:
+small-model serving and training steps card against CPU. The data-plane
+kernels are compared bitwise; RMSNorm and the flash forward within the JAX
+kernel tests' tolerances (1e-5 / 2e-2 and 2e-5 / 3e-2 in f32 / bf16), the
+flash backward within 2e-4 in f32 (the JAX gradient test's) and 3e-2 in
+bf16 (one bf16 rounding of each gradient, as the forward's). Needs a card;
+every test skips without one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -17,7 +19,7 @@ import torch
 import repro_torch.core as core
 import repro_torch.mv as mv
 from repro_torch import configs, models, serve
-from repro_torch.kernels import flash_attention_fwd, ops
+from repro_torch.kernels import flash_attention_bwd, flash_attention_fwd, ops
 from repro_torch.kernels import ref as kref
 from repro_torch.mv import dataplane as dp
 from repro_torch.mv import tableops as T
@@ -246,8 +248,10 @@ def test_rmsnorm_kernel_matches_cpu(dev, shape, dtype):
                   f"{shape} w {w.dtype} residual {res is not None}")
 
 
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 FLASH_CASES = [  # b, hq, hkv, sq, sk, d, causal
     (4, 32, 8, 544, 544, 160, True),    # the serving oracle
+    (1, 32, 32, 1000, 1000, 80, True),  # stablelm-3b's MHA, head dim 80
     (2, 32, 8, 40, 72, 160, False),     # ragged
     (2, 32, 8, 100, 300, 160, True),    # causal, sq < sk
     (1, 8, 2, 300, 100, 160, True),     # causal, sq > sk
@@ -269,6 +273,45 @@ def test_flash_fwd_kernel_matches_cpu(dev, b, hq, hkv, sq, sk, d, causal, dtype)
     assert ops.launches["flash_fwd"] == 1
     close(flash_attention_fwd(q, k, v, causal=causal), got, ATTN_TOL[dtype])
     assert torch.isfinite(got[1]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", FLASH_CASES)
+def test_flash_bwd_kernels_match_cpu(dev, b, hq, hkv, sq, sk, d, causal, dtype):
+    """Both backward kernels against the plain backward on the CPU, from
+    the CPU forward's o and lse (so both sides see the same inputs)."""
+    q = randn((b, hq, sq, d), dtype, 1)
+    k = randn((b, hkv, sk, d), dtype, 2)
+    v = randn((b, hkv, sk, d), dtype, 3)
+    do = randn((b, hq, sq, d), dtype, 4)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    ops.reset_launches()
+    got = flash_attention_bwd(*(t.to(dev) for t in (q, k, v, o, lse, do)), causal=causal)
+    assert ops.launches["flash_bwd_dq"] == 1 and ops.launches["flash_bwd_dkv"] == 1
+    close(flash_attention_bwd(q, k, v, o, lse, do, causal=causal), got, BWD_TOL[dtype],
+          f"{(b, hq, hkv, sq, sk, d, causal)} {dtype}")
+
+
+def test_flash_bwd_keyless_rows_and_strided_grad(dev):
+    """A key set of length 0 gives dq = 0 and empty dk/dv; a causal query
+    above every key (sq > sk) adds nothing to dk/dv past its row; the
+    transposed output gradient autograd hands the Function reaches the
+    kernel as a view."""
+    q = torch.ones(1, 4, 8, 64, device=dev)
+    empty = torch.ones(1, 2, 0, 64, device=dev)
+    o, lse = flash_attention_fwd(q, empty, empty)
+    dq, dk, dv = flash_attention_bwd(q, empty, empty, o, lse, torch.ones_like(q))
+    assert not dq.any() and dk.shape == (1, 2, 0, 64) and dv.shape == dk.shape
+    qs = randn((2, 24, 32, 80), torch.float32, 5)      # (b, s, h, d)
+    kv = randn((2, 24, 8, 80), torch.float32, 6)
+    g = randn((2, 24, 32, 80), torch.float32, 7)
+    grads = []
+    for device in ("cpu", dev):
+        leaves = [t.detach().to(device).requires_grad_(True) for t in (qs, kv, kv.clone())]
+        out = ops.flash_attention(*(t.transpose(1, 2) for t in leaves))
+        out.transpose(1, 2).backward(g.to(device))
+        grads.append(tuple(t.grad for t in leaves))
+    close(grads[0], grads[1], BWD_TOL[torch.float32])
 
 
 def test_flash_fwd_kernel_takes_strided_views_and_empty_keys(dev):
@@ -312,10 +355,68 @@ def test_small_model_serving_card_equals_cpu(dev):
     prompt = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 20)))
     ops.reset_launches()
     got = serve.greedy_generate(cfg, card_model, prompt, 6)
-    assert ops.launches == {"rmsnorm": (2 * cfg.n_layers + 1) * 6, "flash_fwd": 0}
+    assert ops.launches == {"rmsnorm": (2 * cfg.n_layers + 1) * 6, "flash_fwd": 0,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     assert torch.equal(got.cpu(), serve.greedy_generate(cfg, cpu_model, prompt, 6, "cpu"))
     ops.reset_launches()
     card_logits, _, _ = models.forward(cfg, card_model, prompt.to(dev))
     assert ops.launches["flash_fwd"] == cfg.n_layers
     cpu_logits, _, _ = models.forward(cfg, cpu_model, prompt)
     torch.testing.assert_close(card_logits.cpu(), cpu_logits, atol=1e-4, rtol=1e-4)
+
+
+def test_small_train_steps_card_equal_cpu(dev):
+    """Two train steps of 2 microbatches of reduced stablelm-3b with GQA in
+    f32, weights made once on the CPU: loss and grad norm within 1e-5
+    relative (``tests/test_torch_train.py``'s tolerance); parameters within
+    lr/4, and at most 1e-3 of them beyond 1e-5 (Adam's normalised update
+    turns the last bits of a gradient near eps into a different fraction
+    of a step), so the first microbatch's gradients before any update are
+    held directly within 1e-5 + 1e-4·|g|; every model kernel launches on
+    the card, none on the CPU."""
+    import copy
+
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_config("stablelm-3b").reduced(dtype="float32", n_heads=8, n_kv_heads=2)
+    cpu_model = models.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    states = {"cpu": init_train_state(cfg, cpu_model),
+              "card": init_train_state(cfg, copy.deepcopy(cpu_model).to(dev))}
+    rng = np.random.default_rng(2)
+    seqs = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 33)).astype(np.int32))
+            for _ in range(2)]
+    places = {"cpu": torch.device("cpu"), "card": dev}
+
+    def first_grads(where):
+        model = states[where]["params"]
+        loss, _ = models.lm_loss(cfg, model, {"tokens": seqs[0][:2, :-1].to(places[where]),
+                                              "labels": seqs[0][:2, 1:].to(places[where])})
+        return [g.cpu() for g in torch.autograd.grad(loss, list(model.parameters()))]
+
+    for g_card, g_cpu in zip(first_grads("card"), first_grads("cpu"), strict=True):
+        torch.testing.assert_close(g_card, g_cpu, atol=1e-5, rtol=1e-4)
+    out = {}
+    for where, device in places.items():
+        step = make_train_step(cfg, AdamWConfig(lr=1e-2, warmup_steps=2), global_rows=4)
+        ops.reset_launches()
+        mets = []
+        for s in seqs:
+            states[where], m = step(states[where], {"tokens": s[:, :-1].to(device),
+                                                   "labels": s[:, 1:].to(device)})
+            mets.append(m)
+        out[where] = (mets, dict(ops.launches))
+    assert not any(out["cpu"][1].values())
+    n = 2 * 2  # steps x microbatches
+    assert out["card"][1] == {"rmsnorm": n * (4 * cfg.n_layers + 1),
+                              "flash_fwd": n * 2 * cfg.n_layers,
+                              "flash_bwd_dq": n * cfg.n_layers,
+                              "flash_bwd_dkv": n * cfg.n_layers}
+    for mc, mg in zip(out["cpu"][0], out["card"][0]):
+        for key in ("loss", "grad_norm"):
+            torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-5, atol=0)
+    cpu_p = dict(states["cpu"]["params"].named_parameters())
+    diff = torch.cat([(p.detach().cpu() - cpu_p[n].detach()).abs().reshape(-1)
+                      for n, p in states["card"]["params"].named_parameters()])
+    assert float(diff.max()) <= 1e-2 / 4
+    assert float((diff > 1e-5).float().mean()) <= 1e-3

@@ -16,6 +16,9 @@ import torch
 import repro_torch
 from repro_torch import convert
 from repro_torch import configs as tcfg
+from repro_torch import data as tdata
+from repro_torch.launch import train as launch_train
+from repro_torch.train.loop import LoopConfig, run_training
 from repro_torch import models as tm
 from repro_torch.serve import greedy_generate
 from repro_torch.mv import dataplane as dp
@@ -43,6 +46,9 @@ def port_modules():
 def test_importing_every_module_loads_neither_jax_nor_repro():
     mods = port_modules()
     assert "repro_torch.mv.dataplane" in mods and len(mods) >= 20
+    assert {"repro_torch.train.loop", "repro_torch.train.step", "repro_torch.core.planner",
+            "repro_torch.checkpoint.ckpt", "repro_torch.data.pipeline",
+            "repro_torch.runtime.ft", "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -86,14 +92,26 @@ def test_no_jax_or_repro_import_in_source(path):
     lambda tmp: greedy_generate(_SMALL, _small_cpu_model(),
                                 torch.zeros(1, 2, dtype=torch.int64), 2),
     lambda tmp: convert.params_from_reference(_SMALL, {}),
+    lambda tmp: convert.train_state_from_reference(_SMALL, {}),
+    lambda tmp: tdata.materialize_dataset(tdata.DataConfig(n_shards=1), tmp / "d"),
+    lambda tmp: tdata.build_pipeline_workload(tdata.DataConfig(n_shards=1)),
+    lambda tmp: tdata.BatchIterator(tmp / "d", tdata.DataConfig(n_shards=1), 2),
+    lambda tmp: run_training(_SMALL, LoopConfig(steps=1, ckpt_dir=str(tmp / "ck"),
+                                                data_dir=str(tmp / "d"))),
+    lambda tmp: launch_train.main(["--reduced", "--steps", "1",
+                                   "--ckpt-dir", str(tmp / "ck"),
+                                   "--data-dir", str(tmp / "d")]),
 ], ids=["realize_workload", "make_base_table", "empty_like", "DiskStore",
         "table_from_numpy", "init_params", "make_cache", "greedy_generate",
-        "params_from_reference"])
+        "params_from_reference", "train_state_from_reference",
+        "materialize_dataset", "build_pipeline_workload", "BatchIterator",
+        "run_training", "launch.train"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry(tmp_path)
+    assert not (tmp_path / "d").exists() and not (tmp_path / "ck").exists()
 
 
 def test_cpu_tensors_never_launch_a_kernel():
