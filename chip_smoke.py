@@ -22,8 +22,13 @@ Phases, in order; any failure raises and exits non-zero:
              at the training path's shape (b 2, 32 over 32 heads, 4096
              positions, head dim 80, causal; the forward there too), the
              serving shape (GQA), a ragged non-causal, a causal sq != sk
-             and a keyless case; kernel, plain and library-call times from
-             CUDA events, and the forward+backward pair against SDPA's;
+             and a keyless case; the SSD scan within 2e-4 / 5e-2 at the
+             Mamba-2 serving prefill (b 4, 512 positions, 80 heads of 64,
+             state 128; f32 and bf16), the long prefill (1 x 32768, bf16),
+             a reduced s = chunk = 20 case, the impulse case and one case
+             against the exact recurrence; kernel, plain and library-call
+             times from CUDA events, and the forward+backward pair against
+             SDPA's;
 4. main    — one S/C refresh round: ``generate_workload(12, seed=4)``
              realized at 512 MiB per root on the card, calibrated, solved
              for a 1.6 GB Memory Catalog, run serially and with S/C; the
@@ -55,7 +60,15 @@ Phases, in order; any failure raises and exits non-zero:
              cache-less forward (which runs the flash kernel) within 2e-2;
              then reduced stablelm-12b with GQA in f32, card against CPU:
              the same greedy tokens, logits within 1e-4;
-8. train   — the training data (4 shards of 64 x 512 tokens, vocab
+8. mamba   — mamba2-2.7b at full width and depth (64 layers, bf16, random
+             seeded weights) answers 4 requests of 512-token prompts with
+             64 greedy tokens each, then prefills one 32768-token prompt:
+             RMSNorm must launch 129 times per forward, the SSD scan 64
+             times per prefill, no flash kernel; a profiled prefill and
+             decode window; the oracle at full width in f32 and 2 layers
+             over 512 + 64 positions within 2e-2; reduced mamba2 card
+             against CPU: the same greedy tokens, logits within 1e-4;
+9. train   — the training data (4 shards of 64 x 512 tokens, vocab
              50304, 4097-token rows) materialized by S/C on the card, then
              ``run_training`` of stablelm-3b at full width and depth (32
              layers, d_model 2560, bf16, f32 AdamW moments, remat
@@ -66,7 +79,7 @@ Phases, in order; any failure raises and exits non-zero:
              under ``torch.profiler``. Then reduced stablelm-3b with GQA in
              f32, card against CPU (two train steps agree; the CPU launches
              no kernel), and a bitwise checkpoint save/restore round trip;
-9. a JSON line listing every kernel with its launches over every path,
+10. a JSON line listing every kernel with its launches over every path,
    its times, its bound and its worst error over its cases; then the JSON
    result line.
 
@@ -126,23 +139,32 @@ REPLACES.update({
     "flash_fwd": "src/repro/kernels/flash_attention.py:41",
     "flash_bwd_dq": "src/repro/kernels/flash_attention.py:167",
     "flash_bwd_dkv": "src/repro/kernels/flash_attention.py:209",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:28",
 })
 SOURCE = "src/repro_torch/csrc/dataplane.cu"
 MODEL_SOURCES = {"rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
                  "rmsnorm_residual": "src/repro_torch/csrc/rmsnorm.cu",
                  "flash_fwd": "src/repro_torch/csrc/flash_attention.cu",
                  "flash_bwd_dq": "src/repro_torch/csrc/flash_attention.cu",
-                 "flash_bwd_dkv": "src/repro_torch/csrc/flash_attention.cu"}
+                 "flash_bwd_dkv": "src/repro_torch/csrc/flash_attention.cu",
+                 "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
 # The serving path: stablelm-12b at full width, 4 requests of 512-token
 # prompts, 32 new tokens each; the oracle cuts depth to 2 layers (f32).
 SERVE_ARCH = "stablelm-12b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 512, 32
 ORACLE_LAYERS = 2
 PROFILE_STEPS = 8             # decode steps in the serving profile window
+# Mamba-2 serving: mamba2-2.7b at full width and depth, 4 requests of
+# 512-token prompts, 64 new tokens each, and one prompt of prefill_32k's
+# 32768 tokens (batch cut from 32 to 1); the oracle as above over 512 + 64
+# positions (a multiple of the scan's 64-position chunk).
+MAMBA_ARCH = "mamba2-2.7b"
+MAMBA_BATCH, MAMBA_PROMPT, MAMBA_NEW, MAMBA_LONG = 4, 512, 64, 32768
 # Tolerances of the JAX kernel tests (tests/kernels/): one bf16 rounding of
 # the output, or f32 sums taken in another order.
 RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+SSD_TOL = {"float32": 2e-4, "bfloat16": 5e-2}   # tests/kernels/test_ssd_scan.py
 ORACLE_TOL = 2e-2             # tests/models/test_decode.py
 CARD_CPU_LOGIT_TOL = 1e-4     # f32 on both sides, sums in another order
 # The flash backward: the JAX gradient test's 2e-4 in f32; in bf16 one
@@ -564,21 +586,89 @@ def model_kernel_cases(torch, dev):
     return cases
 
 
+def ssd_ops(b, s, h, p, n, chunk, dtype_name) -> tuple:
+    """Operations of the SSD scan as (count, peak rate) pairs. Per (batch,
+    head, chunk of L), the causal mask leaves L(L+1)/2 (row, column) pairs:
+    L(L+1)n for C·Bᵀ and L(L+1)p for its masked product with x·dt; then 4Lnp
+    for C·Hᵀ and the state update. Every product takes an f32 operand (x·dt,
+    the decays, H) except C·Bᵀ, whose operands are the inputs themselves:
+    in bf16 the tensor cores form it exactly with f32 accumulation, so that
+    share counts at the bf16 rate."""
+    L = chunk
+    per = b * h * (s // L)
+    cb = per * L * (L + 1) * n
+    rest = per * (L * (L + 1) * p + 4 * L * n * p)
+    if dtype_name == "bfloat16":
+        return ((rest, PEAK_FLOPS), (cb, PEAK_BF16_FLOPS))
+    return ((rest + cb, PEAK_FLOPS),)
+
+
+def ssd_kernel_cases(torch, dev):
+    """Cases of the SSD scan in :func:`model_kernel_cases`' form: the bf16
+    and f32 serving prefill (4, 512, 80, 64, 128), the bf16 long prefill
+    (1, 32768, 80, 64, 128), a reduced case with s = chunk = 20, the
+    impulse of ``tests/kernels/test_ssd_scan.py`` and one case against the
+    exact recurrence (``ref.ssd_scan_sequential``). B and C are the halves
+    of one (b, s, 2n) tensor, as the model hands them. The operations are
+    :func:`ssd_ops`' causal count, at the f32 rate but for bf16's C·Bᵀ. No
+    single PyTorch call computes the scan: no library time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    out = []
+
+    def add(name, x, dt, a, bm, cm, chunk, plain):
+        b, s, h, p = x.shape
+        chunk, dn, args = min(chunk, s), str(x.dtype).split(".")[1], (x, dt, a, bm, cm)
+        pfn = ((lambda: (ref.ssd_scan_chunked(*args, chunk=chunk),)) if plain == "chunked"
+               else (lambda: (ref.ssd_scan_sequential(*args),)))
+        out.append(dict(
+            kernel="ssd_scan", dn=dn, inputs=args, pfn=pfn, lfn=None, lib_minus=None,
+            case=f"{name}_L{chunk}{'' if plain == 'chunked' else '_vs_sequential'}_{dn}",
+            kfn=lambda: (ssd_scan(*args, chunk=chunk),),
+            ops=ssd_ops(b, s, h, p, bm.shape[-1], chunk, dn),
+            samples=5 if s > MAMBA_PROMPT else 21))
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    shapes = [  # b, s, h, p, n, chunk, dtype, plain
+        (4, MAMBA_PROMPT, 80, 64, 128, 64, torch.bfloat16, "chunked"),
+        (4, MAMBA_PROMPT, 80, 64, 128, 64, torch.float32, "chunked"),
+        (1, MAMBA_LONG, 80, 64, 128, 64, torch.bfloat16, "chunked"),
+        (2, 20, 8, 16, 16, 64, torch.float32, "chunked"),
+        (2, 128, 2, 16, 8, 32, torch.float32, "sequential"),
+    ]
+    for b, s, h, p, n, chunk, dtype, plain in shapes:
+        x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+        dt = (torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+              * 0.1).to(dtype)
+        a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.5)
+        bc = (torch.randn((b, s, 2 * n), generator=gen, device=dev) / n**0.5).to(dtype)
+        add(f"{b}x{s}x{h}x{p}x{n}", x, dt, a, bc[..., :n], bc[..., n:], chunk, plain)
+    x = torch.zeros((1, 64, 1, 4), device=dev)   # an impulse at t = 0
+    x[0, 0] = 1.0
+    ones = torch.ones((1, 64, 4), device=dev)
+    add("impulse_1x64x1x4x4", x, torch.full((1, 64, 1), 0.05, device=dev),
+        torch.tensor([-0.1], device=dev), ones, ones, 16, "sequential")
+    return out
+
+
 def model_kernel_phase(torch, dev, bw):
-    """Hold RMSNorm and the flash forward and backward against their plain
-    versions (:func:`hold`: the JAX kernel tests' tolerances elementwise and
-    ``REL_TOL`` relative to the data); the flash forward's lse must be
-    finite on every row that has one, and a keyless row must give o = 0,
-    lse = +inf and dq = 0. Operations count against the f32 rate for f32
-    inputs and the bf16 tensor-core rate for bf16 ones."""
+    """Hold RMSNorm, the flash forward and backward and the SSD scan against
+    their plain versions (:func:`hold`: the JAX kernel tests' tolerances
+    elementwise and ``REL_TOL`` relative to the data); the flash forward's
+    lse must be finite on every row that has one, and a keyless row must
+    give o = 0, lse = +inf and dq = 0; the SSD impulse must reach the last
+    chunk. Operations count against the f32 rate for f32 inputs and the
+    bf16 tensor-core rate for bf16 ones, except where a case gives its
+    operations as (count, rate) pairs (the SSD scan)."""
     rows = []
     lib_times = {}   # SDPA's backward, shared by the two backward kernels
-    for c in model_kernel_cases(torch, dev):
+    for c in [*model_kernel_cases(torch, dev), *ssd_kernel_cases(torch, dev)]:
         kernel, case, dn = c["kernel"], c["case"], c["dn"]
         got, want = c["kfn"](), c["pfn"]()
         torch.cuda.synchronize()
-        tol = {"flash_fwd": ATTN_TOL, "flash_bwd_dq": BWD_TOL,
-               "flash_bwd_dkv": BWD_TOL}.get(kernel, RMS_TOL)[dn]
+        tol = {"flash_fwd": ATTN_TOL, "flash_bwd_dq": BWD_TOL, "flash_bwd_dkv": BWD_TOL,
+               "ssd_scan": SSD_TOL}.get(kernel, RMS_TOL)[dn]
         err, rel, rms = hold(torch, f"{kernel}/{case}", got, want, tol, REL_TOL[dn])
         keyless = kernel.startswith("flash") and c["inputs"][1].shape[2] == 0
         if kernel == "flash_fwd":
@@ -590,9 +680,14 @@ def model_kernel_phase(torch, dev, bw):
                                      "o = 0 and lse = +inf")
         if kernel == "flash_bwd_dq" and keyless and bool(got[0].any()):
             raise AssertionError(f"{kernel}/{case}: a row with no key must give dq = 0")
+        if case.startswith("impulse") and not float(got[0][0, -1].abs().sum()) > 0:
+            raise AssertionError(f"{kernel}/{case}: the state was lost across chunks")
         nbytes = sum(t.nbytes for t in c["inputs"]) + sum(t.nbytes for t in got)
         bytes_ms = nbytes / bw * 1e3
-        ops_ms = c["ops"] / (PEAK_BF16_FLOPS if dn == "bfloat16" else PEAK_FLOPS) * 1e3
+        ops_at = (c["ops"] if isinstance(c["ops"], tuple) else
+                  ((c["ops"], PEAK_BF16_FLOPS if dn == "bfloat16" else PEAK_FLOPS),))
+        n_ops = sum(count for count, _ in ops_at)
+        ops_ms = sum(count / peak for count, peak in ops_at) * 1e3
         timing = dict(samples=c["samples"], batch=10 if c["samples"] > 5 else 2)
         library_ms = None
         if c["lfn"] is not None:
@@ -612,7 +707,7 @@ def model_kernel_phase(torch, dev, bw):
             f"rel_err={rel} (limit {REL_TOL[dn]}, RMS |plain| {rms}) ms={row['ms']} plain_ms={row['plain_ms']} "
             f"library_ms={row['library_ms']} bound_ms={row['bound_ms']} "
             f"({row['bound_by']}, {nbytes} B, bytes {bytes_ms} ms, "
-            f"{c['ops']} ops {ops_ms} ms)")
+            f"{n_ops} ops {ops_ms} ms)")
         del got, want
     bwd_wrapper(torch, dev)
     flash_pair(torch, dev)
@@ -672,7 +767,7 @@ def flash_pair(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: serving
+# phases 7-8: serving (stablelm-12b, mamba2-2.7b)
 # ---------------------------------------------------------------------------
 
 def log_breakdown(label, wall, by_name, per=1, phase="serve"):
@@ -732,7 +827,7 @@ def serve_phase(torch, np, dev):
         raise AssertionError(f"generated tokens {tuple(out.shape)} out of range")
     forwards = 1 + (SERVE_NEW - 1)
     want = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards, "rmsnorm/residual": 0,
-            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ssd_scan": 0}
     if serve_launches != want:
         raise AssertionError(f"serving launches {serve_launches}, expected {want}")
     log(f"serve: {SERVE_BATCH} requests x {SERVE_PROMPT}-token prompts, "
@@ -763,33 +858,19 @@ def serve_phase(torch, np, dev):
     tok = torch.from_numpy(np.random.default_rng(6).integers(
         0, ocfg.vocab_size, (SERVE_BATCH, total))).to(dev)
     ops.reset_launches()
-    with torch.inference_mode():
-        full, _, _ = models.forward(ocfg, omodel, tok)
-        cache = models.make_cache(ocfg, SERVE_BATCH, total, dev)
-        last, cache = models.prefill(ocfg, omodel, tok[:, :SERVE_PROMPT], cache)
-        worst = float((last - full[:, SERVE_PROMPT - 1]).abs().max())
-        ok = bool(torch.isclose(last, full[:, SERVE_PROMPT - 1], rtol=ORACLE_TOL,
-                                atol=ORACLE_TOL).all())
-        for t in range(SERVE_PROMPT, total):
-            step, cache = models.decode_step(ocfg, omodel, tok[:, t], cache, t)
-            worst = max(worst, float((step - full[:, t]).abs().max()))
-            ok = ok and bool(torch.isclose(step, full[:, t], rtol=ORACLE_TOL,
-                                           atol=ORACLE_TOL).all())
+    worst, top = oracle_check(torch, models, ocfg, omodel, tok, SERVE_PROMPT, "serving")
     oracle_launches = {**ops.launches, **ops.variant_launches}
-    if not ok or not bool(torch.isfinite(full).all()):
-        raise AssertionError(f"serving oracle: prefill/decode logits differ from "
-                             f"the forward by up to {worst} (tolerance {ORACLE_TOL})")
     want = {"rmsnorm": (2 * ORACLE_LAYERS + 1) * (2 + SERVE_NEW),
             "rmsnorm/residual": 0, "flash_fwd": ORACLE_LAYERS, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+            "flash_bwd_dkv": 0, "ssd_scan": 0}
     if oracle_launches != want:
         raise AssertionError(f"oracle launches {oracle_launches}, expected {want}")
     log(f"serve: oracle ({ORACLE_LAYERS} layers, full width, f32) prefill + "
         f"{SERVE_NEW} teacher-forced decode steps match the cache-less forward "
         f"within {ORACLE_TOL} (max abs diff {worst}; logits up to "
-        f"{float(full.abs().max())}); launches {oracle_launches}; "
+        f"{top}); launches {oracle_launches}; "
         f"{time.perf_counter() - t0:.3f}s")
-    del omodel, full, cache
+    del omodel
     torch.cuda.empty_cache()
 
     # card against CPU: reduced stablelm-12b with GQA, f32
@@ -817,8 +898,174 @@ def serve_phase(torch, np, dev):
     return serve_launches, oracle_launches
 
 
+def oracle_check(torch, models, cfg, model, tok, prompt_len, label):
+    """Prefill ``tok[:, :prompt_len]`` and decode the rest teacher-forced;
+    raise unless every step's logits lie within ``ORACLE_TOL`` of the
+    cache-less forward's. Returns the worst difference and the largest
+    logit over the real vocabulary (the padded one holds -1e9)."""
+    b, total = tok.shape
+    with torch.inference_mode():
+        full, _, _ = models.forward(cfg, model, tok)
+        cache = models.make_cache(cfg, b, total, tok.device)
+        last, cache = models.prefill(cfg, model, tok[:, :prompt_len], cache)
+        worst = float((last - full[:, prompt_len - 1]).abs().max())
+        ok = bool(torch.isclose(last, full[:, prompt_len - 1], rtol=ORACLE_TOL,
+                                atol=ORACLE_TOL).all())
+        for t in range(prompt_len, total):
+            step, cache = models.decode_step(cfg, model, tok[:, t], cache, t)
+            worst = max(worst, float((step - full[:, t]).abs().max()))
+            ok = ok and bool(torch.isclose(step, full[:, t], rtol=ORACLE_TOL,
+                                           atol=ORACLE_TOL).all())
+    if not ok or not bool(torch.isfinite(full).all()):
+        raise AssertionError(f"{label} oracle: prefill/decode logits differ from the "
+                             f"forward by up to {worst} (tolerance {ORACLE_TOL})")
+    return worst, float(full[..., :cfg.vocab_size].abs().max())
+
+
+def mamba_phase(torch, np, dev):
+    """mamba2-2.7b at full width and depth (bf16, random seeded weights)
+    answers MAMBA_BATCH requests through ``greedy_generate`` and prefills
+    one MAMBA_LONG-token prompt; then the full-width f32 oracle at
+    ORACLE_LAYERS layers, and reduced mamba2 card against CPU. Every
+    forward launches RMSNorm twice per layer and once at the final norm;
+    each prefill or cache-less forward launches the SSD scan once per layer
+    (decode is the plain recurrence, as in the JAX package); no flash
+    kernel runs. Returns the launch counts of the serving run, the long
+    prefill and the oracle."""
+    import dataclasses as dc
+
+    from repro_torch import configs, models, serve
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(MAMBA_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = models.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, config counts {cfg.param_count()}")
+    log(f"mamba: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} d_inner "
+        f"{cfg.ssm_d_inner} SSD heads {cfg.ssm_heads} x {cfg.ssm_head_dim} state "
+        f"{cfg.ssm_state} vocab {cfg.vocab_size} (padded {cfg.vocab_padded}) {cfg.dtype}: "
+        f"{n_params} parameters, {sum(p.nbytes for p in model.parameters())} B, init "
+        f"{time.perf_counter() - t0:.3f}s")
+    rng = np.random.default_rng(9)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (MAMBA_BATCH, MAMBA_PROMPT)))
+
+    def generate(p, max_new):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = serve.greedy_generate(cfg, model, p, max_new)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def expect(forwards, scans):
+        return {"rmsnorm": (2 * cfg.n_layers + 1) * forwards, "rmsnorm/residual": 0,
+                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ssd_scan": scans}
+
+    generate(prompt, 2)                           # warm-up (cuBLAS, allocator)
+    _, prefill_s = generate(prompt, 1)            # prefill and one argmax
+    ops.reset_launches()
+    out, total_s = generate(prompt, MAMBA_NEW)
+    serve_launches = {**ops.launches, **ops.variant_launches}
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = (total_s - prefill_s) / (MAMBA_NEW - 1) * 1e3
+    if out.shape != (MAMBA_BATCH, MAMBA_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"generated tokens {tuple(out.shape)} out of range")
+    if serve_launches != expect(MAMBA_NEW, cfg.n_layers):
+        raise AssertionError(f"mamba serving launches {serve_launches}, expected "
+                             f"{expect(MAMBA_NEW, cfg.n_layers)}")
+    log(f"mamba: {MAMBA_BATCH} requests x {MAMBA_PROMPT}-token prompts, {MAMBA_NEW} new "
+        f"tokens each: total {total_s:.4f}s, prefill {prefill_s:.4f}s, decode "
+        f"{decode_ms:.3f} ms/token (per step of {MAMBA_BATCH}), "
+        f"{MAMBA_BATCH * MAMBA_NEW / total_s:.2f} tokens/s; max_memory_allocated {peak} B; "
+        f"launches {serve_launches}")
+    log(f"mamba: sample {out[0, :12].tolist()}")
+    pre_wall, pre, _ = device_kernel_times(
+        torch, lambda: serve.greedy_generate(cfg, model, prompt, 1))
+    both_wall, both, _ = device_kernel_times(
+        torch, lambda: serve.greedy_generate(cfg, model, prompt, 1 + PROFILE_STEPS))
+    dec = {k: (us - pre.get(k, (0.0, 0))[0], n - pre.get(k, (0.0, 0))[1])
+           for k, (us, n) in both.items()}
+    log_breakdown(f"prefill ({MAMBA_BATCH} x {MAMBA_PROMPT} tokens)", pre_wall, pre,
+                  phase="mamba")
+    log_breakdown(f"decode step (mean of {PROFILE_STEPS})", both_wall - pre_wall,
+                  {k: v for k, v in dec.items() if v[0] > 0}, PROFILE_STEPS, phase="mamba")
+
+    # one long prompt: prefill_32k's length, batch 1; the first run warms up
+    # under the profiler (its device times; its wall clock is not reported)
+    long_prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, MAMBA_LONG)))
+    _, by_name, _ = device_kernel_times(torch, lambda: generate(long_prompt, 1))
+    busy = sum(us for us, _ in by_name.values())
+    log(f"mamba: profile {MAMBA_LONG}-token prefill (warm-up run): device busy "
+        f"{busy / 1e3:.3f} ms")
+    for k, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"mamba:   {us / 1e3:9.4f} ms {count:8d}x  {k[:90]}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    long_out, long_s = generate(long_prompt, 1)
+    long_launches = {**ops.launches, **ops.variant_launches}
+    long_peak = torch.cuda.max_memory_allocated()
+    if long_launches != expect(1, cfg.n_layers):
+        raise AssertionError(f"long prefill launches {long_launches}, expected "
+                             f"{expect(1, cfg.n_layers)}")
+    if long_out.shape != (1, 1) or not 0 <= int(long_out) < cfg.vocab_size:
+        raise AssertionError(f"long prefill token {long_out.tolist()} out of range")
+    log(f"mamba: one {MAMBA_LONG}-token prompt: prefill {long_s:.4f}s "
+        f"({MAMBA_LONG / long_s:.1f} tokens/s); max_memory_allocated {long_peak} B; "
+        f"launches {long_launches}")
+    del model, out
+    torch.cuda.empty_cache()
+
+    # the serving oracle: prefill + teacher-forced decode against forward
+    t0 = time.perf_counter()
+    ocfg = dc.replace(cfg, n_layers=ORACLE_LAYERS, dtype="float32")
+    omodel = models.init_params(ocfg, torch.Generator(device=dev).manual_seed(1), dev)
+    tok = torch.from_numpy(rng.integers(0, ocfg.vocab_size,
+                                        (MAMBA_BATCH, MAMBA_PROMPT + MAMBA_NEW))).to(dev)
+    ops.reset_launches()
+    worst, top = oracle_check(torch, models, ocfg, omodel, tok, MAMBA_PROMPT, "mamba")
+    oracle_launches = {**ops.launches, **ops.variant_launches}
+    want = {**expect(0, 2 * ORACLE_LAYERS),
+            "rmsnorm": (2 * ORACLE_LAYERS + 1) * (2 + MAMBA_NEW)}
+    if oracle_launches != want:
+        raise AssertionError(f"mamba oracle launches {oracle_launches}, expected {want}")
+    log(f"mamba: oracle ({ORACLE_LAYERS} layers, full width, f32) prefill + {MAMBA_NEW} "
+        f"teacher-forced decode steps match the cache-less forward over "
+        f"{MAMBA_PROMPT + MAMBA_NEW} positions within {ORACLE_TOL} (max abs diff {worst}; "
+        f"logits up to {top}); launches {oracle_launches}; {time.perf_counter() - t0:.3f}s")
+    del omodel
+    torch.cuda.empty_cache()
+
+    # card against CPU: reduced mamba2, f32
+    t0 = time.perf_counter()
+    scfg = configs.get_config(MAMBA_ARCH).reduced(dtype="float32")
+    cpu_model = models.init_params(scfg, torch.Generator().manual_seed(2), "cpu")
+    card_model = models.init_params(scfg, torch.Generator().manual_seed(2), "cpu").to(dev)
+    sprompt = torch.from_numpy(rng.integers(0, scfg.vocab_size, (2, 20)))
+    cpu_tok = serve.greedy_generate(scfg, cpu_model, sprompt, 8, "cpu")
+    card_tok = serve.greedy_generate(scfg, card_model, sprompt, 8).cpu()
+    if not torch.equal(cpu_tok, card_tok):
+        raise AssertionError(f"mamba greedy tokens differ card vs CPU:\n{cpu_tok}\n{card_tok}")
+    with torch.inference_mode():
+        cpu_logits, _, _ = models.forward(scfg, cpu_model, sprompt)
+        card_logits, _, _ = models.forward(scfg, card_model, sprompt.to(dev))
+    diff = float((card_logits.cpu() - cpu_logits).abs().max())
+    if not bool(torch.isclose(card_logits.cpu(), cpu_logits, rtol=CARD_CPU_LOGIT_TOL,
+                              atol=CARD_CPU_LOGIT_TOL).all()):
+        raise AssertionError(f"mamba forward logits differ card vs CPU by {diff}")
+    log(f"mamba: reduced {MAMBA_ARCH} (f32) card vs CPU: the same greedy tokens "
+        f"{card_tok[0].tolist()}; forward logits within {CARD_CPU_LOGIT_TOL} (max abs "
+        f"diff {diff}); {time.perf_counter() - t0:.3f}s")
+    return serve_launches, long_launches, oracle_launches
+
+
 # ---------------------------------------------------------------------------
-# phase 8: training
+# phase 9: training
 # ---------------------------------------------------------------------------
 
 def predicted_train_launches(cfg, steps, n_micro) -> dict:
@@ -831,7 +1078,7 @@ def predicted_train_launches(cfg, steps, n_micro) -> dict:
     n, layers = steps * n_micro, cfg.n_layers
     return {"rmsnorm": n * (2 * layers + 1 + 2 * layers), "rmsnorm/residual": 0,
             "flash_fwd": n * 2 * layers, "flash_bwd_dq": n * layers,
-            "flash_bwd_dkv": n * layers}
+            "flash_bwd_dkv": n * layers, "ssd_scan": 0}
 
 
 def train_phase(torch, np, dev, root):
@@ -959,7 +1206,8 @@ def train_phase(torch, np, dev, root):
             mets.append({k: float(v) for k, v in m.items()})
         states[where] = st
         runs[where] = (mets, dict(ops.launches))
-    if any(runs["cpu"][1].values()) or not all(runs["card"][1].values()):
+    if any(runs["cpu"][1].values()) or not all(
+            runs["card"][1][k] for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
         raise AssertionError(f"launches: CPU {runs['cpu'][1]}, card {runs['card'][1]}")
     for mc, mg in zip(runs["cpu"][0], runs["card"][0]):
         for key in ("loss", "grad_norm"):
@@ -1318,7 +1566,12 @@ def main() -> int:
     serve_launches, oracle_launches = serve_phase(torch, np, dev)
     log(f"phase serve {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 8. training ----------------------------------------------------------------
+    # -- 8. Mamba-2 serving -------------------------------------------------------
+    t_phase = time.perf_counter()
+    mamba_launches = mamba_phase(torch, np, dev)
+    log(f"phase mamba {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 9. training ----------------------------------------------------------------
     t_phase = time.perf_counter()
     train_root = HERE / "build" / "chip_smoke_train"
     shutil.rmtree(train_root, ignore_errors=True)
@@ -1327,14 +1580,17 @@ def main() -> int:
     train_launches = train_phase(torch, np, dev, train_root)
     log(f"phase train {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 9. kernels line ------------------------------------------------------------
+    # -- 10. kernels line -----------------------------------------------------------
     # Each kernel reports the times of the case its path's calls take (the
     # data plane's 16.7M-row columns, RMSNorm on the bf16 serving prefill,
-    # the flash kernels on the bf16 training shape) and the worst error over
-    # all its cases. The residual RMSNorm's launches are its variant's share
-    # of the RMSNorm count; the plain RMSNorm's are the rest.
-    model_launches = {k: serve_launches[k] + oracle_launches[k] + train_launches[k]
-                      for k in serve_launches}
+    # the flash kernels on the bf16 training shape, the SSD scan on the bf16
+    # Mamba-2 serving prefill) and the worst error over all its cases. The
+    # model kernels' launches are those of every model path (stablelm
+    # serving and its oracle, Mamba-2 serving, long prefill and oracle,
+    # training). The residual RMSNorm's launches are its variant's share of
+    # the RMSNorm count; the plain RMSNorm's are the rest.
+    model_runs = (serve_launches, oracle_launches, *mamba_launches, train_launches)
+    model_launches = {k: sum(run[k] for run in model_runs) for k in serve_launches}
     model_launches["rmsnorm_residual"] = model_launches.pop("rmsnorm/residual")
     model_launches["rmsnorm"] -= model_launches["rmsnorm_residual"]
     headline = {"filter_gt": "f32", "map_derived": "two_f32",
@@ -1344,7 +1600,8 @@ def main() -> int:
                 "rmsnorm_residual": "2048x5120_bfloat16",
                 "flash_fwd": "2x32/32x4096x4096x80_causal_bfloat16",
                 "flash_bwd_dq": "2x32/32x4096x4096x80_causal_bfloat16",
-                "flash_bwd_dkv": "2x32/32x4096x4096x80_causal_bfloat16"}
+                "flash_bwd_dkv": "2x32/32x4096x4096x80_causal_bfloat16",
+                "ssd_scan": f"4x{MAMBA_PROMPT}x80x64x128_L64_bfloat16"}
     kernels = []
     for kernel, case in headline.items():
         row = next(r for r in rows if r["kernel"] == kernel and r["case"] == case)
@@ -1358,8 +1615,8 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
     log(f"launches: main path {main['launches']}; partitioned path {part_launches}; "
-        f"serving {serve_launches}; serving oracle {oracle_launches}; "
-        f"training {train_launches}")
+        f"serving {serve_launches}; serving oracle {oracle_launches}; Mamba-2 serving, "
+        f"long prefill, oracle {list(mamba_launches)}; training {train_launches}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

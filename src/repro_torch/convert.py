@@ -20,7 +20,7 @@ from .configs.base import ModelConfig
 from .core.altopt import Plan
 from .device import resolve_device
 from .models import layers as L
-from .models.transformer import Block, Transformer, check_supported
+from .models.transformer import Block, Transformer, check_supported, layer_kinds
 
 
 def table_from_numpy(table: Mapping[str, np.ndarray],
@@ -60,19 +60,22 @@ def _weight(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 def named_reference_arrays(cfg: ModelConfig, tree: Mapping) -> dict[str, np.ndarray]:
     """A JAX parameter tree of numpy arrays (``embed``, ``blocks.subI.{norm1,
-    mixer.{wq,wk,wv,wo}, norm2, ffn.{wi,wo}}`` stacked on a leading group
-    axis, ``final_norm`` and ``lm_head`` unless embeddings are tied) keyed by
+    mixer.{...}, norm2, ffn.{wi,wo}}`` stacked on a leading group axis, with
+    an attention mixer's ``wq, wk, wv, wo`` or a Mamba-2 mixer's 13 tensors
+    (``layers.SSM_NAMES``) and no ``norm2``/``ffn`` on a layer without an
+    MLP; ``final_norm`` and ``lm_head`` unless embeddings are tied) keyed by
     the port's parameter names (``Transformer.named_parameters()`` order):
     group g's sub-layer i is layer ``g * len(cfg.pattern) + i``. The same
     mapping carries the AdamW moments, which share the tree's structure."""
     check_supported(cfg)
     out = {"embed": np.asarray(tree["embed"])}
-    for g in range(cfg.n_groups):
-        for i in range(len(cfg.pattern)):
-            sub, n = tree["blocks"][f"sub{i}"], g * len(cfg.pattern) + i
-            out[f"layers.{n}.norm1"] = np.asarray(sub["norm1"][g])
-            for k in ("wq", "wk", "wv", "wo"):
-                out[f"layers.{n}.mixer.{k}"] = np.asarray(sub["mixer"][k][g])
+    for n, (mixer, mlp) in enumerate(layer_kinds(cfg)):
+        g, i = divmod(n, len(cfg.pattern))
+        sub = tree["blocks"][f"sub{i}"]
+        out[f"layers.{n}.norm1"] = np.asarray(sub["norm1"][g])
+        for k in (("wq", "wk", "wv", "wo") if mixer == "attn" else L.SSM_NAMES):
+            out[f"layers.{n}.mixer.{k}"] = np.asarray(sub["mixer"][k][g])
+        if mlp is not None:
             out[f"layers.{n}.norm2"] = np.asarray(sub["norm2"][g])
             for k in ("wi", "wo"):
                 out[f"layers.{n}.ffn.{k}"] = np.asarray(sub["ffn"][k][g])
@@ -90,11 +93,15 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping,
     Every weight keeps its ``x @ w`` orientation and its bits."""
     dev = resolve_device(device)
     w = {k: _weight(a, dev) for k, a in named_reference_arrays(cfg, tree).items()}
-    layers = [Block(w[f"layers.{n}.norm1"],
-                    L.Attention(*(w[f"layers.{n}.mixer.{k}"] for k in ("wq", "wk", "wv", "wo"))),
-                    w[f"layers.{n}.norm2"],
-                    L.MLP(w[f"layers.{n}.ffn.wi"], w[f"layers.{n}.ffn.wo"]))
-              for n in range(cfg.n_layers)]
+    layers = []
+    for n, (mixer, mlp) in enumerate(layer_kinds(cfg)):
+        pre = f"layers.{n}."
+        mix = (L.Attention(*(w[f"{pre}mixer.{k}"] for k in ("wq", "wk", "wv", "wo")))
+               if mixer == "attn" else
+               L.SSM(**{k: w[f"{pre}mixer.{k}"] for k in L.SSM_NAMES}))
+        ffn = () if mlp is None else (
+            w[f"{pre}norm2"], L.MLP(w[f"{pre}ffn.wi"], w[f"{pre}ffn.wo"]))
+        layers.append(Block(w[f"{pre}norm1"], mix, *ffn))
     return Transformer(cfg, w["embed"], layers, w["final_norm"], w.get("lm_head"))
 
 

@@ -1,6 +1,6 @@
 """C entry points of the model kernels (``csrc/rmsnorm.cu``,
-``csrc/flash_attention.cu``: the forward and the two backward kernels) and
-their launch counters.
+``csrc/flash_attention.cu``: the forward and the two backward kernels;
+``csrc/ssd_scan.cu``) and their launch counters.
 
 Each wrapper launches through :func:`repro_torch.native.launch`, which
 counts the launch (and a variant's) once it was accepted; nothing else
@@ -15,7 +15,7 @@ import torch
 
 from .. import native
 
-KERNELS = ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+KERNELS = ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ssd_scan")
 launches = native.LaunchCounts(KERNELS)
 # Launches of one variant within a kernel's count: the residual RMSNorm has
 # no caller on the model path and runs only where it is asked for.
@@ -29,6 +29,9 @@ native.declare("flash_attention", {
     "sc_flash_fwd": [_P] * 5 + [_I] * 6 + [_P, ctypes.c_float, _I, _I],
     "sc_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_P, ctypes.c_float, _I, _I],
     "sc_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_P, ctypes.c_float, _I, _I],
+})
+native.declare("ssd_scan", {
+    "sc_ssd_scan": [_P] * 6 + [_I] * 6 + [_P, _I],
 })
 # dtype codes of the C interfaces
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

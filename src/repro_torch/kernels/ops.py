@@ -3,10 +3,13 @@
 
 Dispatch is by the device of the tensors and nothing else: CPU tensors take
 the plain version, CUDA tensors the hand-written kernel (or the wrapper
-raises). There is no ``impl`` argument. Both entry points are
-differentiable through their ``torch.autograd.Function`` (the flash
-backward kernels; RMSNorm's closed-form gradient); under
-``torch.inference_mode()`` they launch exactly their forward kernel.
+raises). There is no ``impl`` argument. ``rmsnorm`` and
+``flash_attention`` are differentiable through their
+``torch.autograd.Function`` (the flash backward kernels; RMSNorm's
+closed-form gradient); under ``torch.inference_mode()`` they launch exactly
+their forward kernel. ``ssd_scan`` is ``kernels.ssd_scan.ssd_scan``
+itself: it has no gradient (nor has the reference's) and refuses inputs
+that would record a graph.
 ``launches`` counts each kernel's launches (``variant_launches`` the
 residual RMSNorm's share); the wrappers bump it where they launch and
 nowhere else.
@@ -18,8 +21,9 @@ import torch
 from .cuda import KERNELS, launches, reset_launches, variant_launches
 from .flash_attention import FlashAttention
 from .rmsnorm import RMSNorm
+from .ssd_scan import ssd_scan
 
-__all__ = ["rmsnorm", "flash_attention", "KERNELS", "launches",
+__all__ = ["rmsnorm", "flash_attention", "ssd_scan", "KERNELS", "launches",
            "variant_launches", "reset_launches"]
 
 

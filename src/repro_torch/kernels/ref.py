@@ -7,8 +7,9 @@ against them. ``attention`` is also the model's attention over a KV cache,
 which the JAX package computes outside Pallas too. Every one computes in f32
 and returns the input's type, as the reference does. ``attention_bwd`` is
 the flash-attention backward's function; RMSNorm's gradient has no kernel
-(``kernels/rmsnorm.py:rmsnorm_bwd``). ``ssd_scan_*`` comes with the Mamba-2
-slice.
+(``kernels/rmsnorm.py:rmsnorm_bwd``). ``ssd_scan_chunked`` is the SSD
+chunked scan's function (``kernels/ssd_scan.py``) and
+``ssd_scan_sequential`` the exact recurrence it is held against.
 """
 from __future__ import annotations
 
@@ -118,3 +119,84 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
         xf = xf + residual.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality): sequential oracle and chunked closed form
+# ---------------------------------------------------------------------------
+
+def ssd_scan_sequential(
+    x: torch.Tensor,     # (b, s, h, p) per-head inputs
+    dt: torch.Tensor,    # (b, s, h)    softplus'd timestep
+    a: torch.Tensor,     # (h,)         negative decay rate per head
+    bmat: torch.Tensor,  # (b, s, n)    input projection, shared by the heads
+    cmat: torch.Tensor,  # (b, s, n)    output projection
+) -> torch.Tensor:
+    """The exact recurrence ``h_t = exp(dt_t·a)·h_{t-1} + dt_t·x_t B_tᵀ``,
+    ``y_t = h_t C_t`` (``ref.py:75``), one step per position, in f32;
+    returns x's type."""
+    bsz, s, h, p = x.shape
+    n = bmat.shape[-1]
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    bf, cf = bmat.float(), cmat.float()
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * af[None, :])                      # (b, h)
+        upd = torch.einsum("bhp,bn->bhpn", xf[:, t] * dtf[:, t, :, None], bf[:, t])
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     bmat: torch.Tensor, cmat: torch.Tensor, chunk: int = 64
+                     ) -> torch.Tensor:
+    """The chunked SSD (``ref.py:111``), the function the SSD scan kernel
+    computes, in f32; returns x's type. Per chunk of ``chunk`` positions,
+    with ``cum`` the inclusive cumsum of ``dt·a``: the intra-chunk term
+    ``(C·Bᵀ ⊙ exp(cum_i - cum_j)[i >= j])·(x·dt)``, the chunk's state
+    ``Σ_j exp(total - cum_j)·(x·dt)_j B_jᵀ``, the running state H carried
+    across chunks, and the inter-chunk term ``(C ⊙ exp(cum))·Hᵀ``. The
+    intra-chunk product contracts j with a batched matmul per head, so no
+    (b, nc, L, L, h, p) tensor is formed."""
+    bsz, s, h, p = x.shape
+    n = bmat.shape[-1]
+    if chunk <= 0 or s % chunk:
+        raise ValueError(f"sequence {s} does not divide into chunks of {chunk}")
+    nc = s // chunk
+    xf = x.float().reshape(bsz, nc, chunk, h, p)
+    dtf = dt.float().reshape(bsz, nc, chunk, h)
+    bf = bmat.float().reshape(bsz, nc, chunk, n)
+    cf = cmat.float().reshape(bsz, nc, chunk, n)
+    af = a.float()
+
+    cum = torch.cumsum(dtf * af, dim=2)                    # (b, nc, L, h)
+    total = cum[:, :, -1, :]                                # (b, nc, h)
+    cum_h = cum.permute(0, 1, 3, 2)                         # (b, nc, h, L)
+
+    # intra-chunk: masked exponents clamped to 0 before the exp (they can
+    # overflow to inf), as ref.py:132-134
+    rel = cum_h[..., :, None] - cum_h[..., None, :]         # (b, nc, h, L, L)
+    mask = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    decay = torch.where(mask, torch.exp(torch.where(mask, rel, 0.0)), 0.0)
+    cb = torch.einsum("bcin,bcjn->bcij", cf, bf)            # (b, nc, L, L)
+    xdt = xf * dtf[..., None]                               # (b, nc, L, h, p)
+    xdt_h = xdt.permute(0, 1, 3, 2, 4)                      # (b, nc, h, L, p)
+    y_intra = torch.matmul(cb[:, :, None] * decay, xdt_h)   # (b, nc, h, L, p)
+
+    # chunk states: S_c = Σ_j exp(total - cum_j)·(x·dt)_j B_jᵀ  (b, nc, h, p, n)
+    w = torch.exp(total[:, :, :, None] - cum_h)             # (b, nc, h, L)
+    state = torch.matmul((xdt_h * w[..., None]).transpose(-1, -2), bf[:, :, None])
+
+    # inter-chunk recurrence: the running state before each chunk
+    hstate = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    hpre = torch.empty_like(state)
+    for c in range(nc):
+        hpre[:, c] = hstate
+        hstate = hstate * torch.exp(total[:, c])[..., None, None] + state[:, c]
+    # y_inter[i] = exp(cum_i)·Σ_n C[i, n]·H[p, n]
+    y_inter = torch.matmul(cf[:, :, None], hpre.transpose(-1, -2)) * torch.exp(cum_h)[..., None]
+
+    y = (y_intra + y_inter).permute(0, 1, 3, 2, 4).reshape(bsz, s, h, p)
+    return y.to(x.dtype)

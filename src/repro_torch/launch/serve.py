@@ -2,8 +2,12 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b \
         --reduced --batch 4 --prompt-len 16 --max-new 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --reduced --device cpu
 
-Without ``--device`` it runs on the card (and refuses to run without one).
+Without ``--device`` it runs on the card (and refuses to run without one). A
+Mamba-2 prompt's length must be at most 64 or a multiple of 64 (the SSD
+scan's chunk), as in the JAX package.
 """
 from __future__ import annotations
 

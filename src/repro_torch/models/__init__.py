@@ -1,4 +1,5 @@
-"""Config-driven decoder LM on PyTorch (serving and training of dense decoders)."""
+"""Config-driven decoder LM on PyTorch (serving and training of dense decoders,
+serving of Mamba-2)."""
 from . import layers
 from .transformer import (
     ACT_NAMES,

@@ -1,12 +1,14 @@
 """Layer library of the decoder LM on PyTorch: GQA attention (RoPE, KV
-cache, head padding) and GLU/GeGLU MLPs, the counterpart of
-``repro.models.layers``.
+cache, head padding), GLU/GeGLU MLPs and the Mamba-2 (SSD) block, the
+counterpart of ``repro.models.layers``.
 
 Parameters are kept as the JAX package keeps them, for ``x @ w``: a
 projection weight is ``(in, out)``. Projections and the MLP are plain
-products, as the JAX package leaves them to XLA; attention without a cache
-and RMSNorm go through ``repro_torch.kernels.ops`` (hand-written kernels on
-the card). MoE and Mamba-2 (SSD) layers come with later slices of the port.
+products, as the JAX package leaves them to XLA; attention without a cache,
+the SSD scan of a prefill or a cache-less forward, and RMSNorm go through
+``repro_torch.kernels.ops`` (hand-written kernels on the card); the Mamba-2
+decode step is the plain recurrence, as in the JAX package. MoE layers come
+with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -163,3 +165,165 @@ def mlp_forward(kind: str, p: MLP, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     act = F.gelu(gate, approximate="tanh") if kind == "geglu" else F.silu(gate)
     return (act * up) @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) block
+# ---------------------------------------------------------------------------
+
+SSM_NAMES = ("w_z", "w_x", "w_bc", "w_dt", "conv_x_w", "conv_x_b", "conv_bc_w",
+             "conv_bc_b", "a_log", "d_skip", "dt_bias", "norm_w", "out_proj")
+
+
+class SSM(nn.Module):
+    """The 13 tensors of one Mamba-2 mixer (``init_ssm``), under the JAX
+    package's names: the projections w_z, w_x (d, d_inner), w_bc (d, 2n),
+    w_dt (d, h); the depthwise conv kernels (k, d_inner) and (k, 2n) and
+    their biases; a_log, d_skip and dt_bias (h,) in f32; the gated norm's
+    norm_w (d_inner,); out_proj (d_inner, d)."""
+
+    def __init__(self, **tensors: torch.Tensor):
+        super().__init__()
+        if set(tensors) != set(SSM_NAMES):
+            raise ValueError(f"SSM takes exactly {SSM_NAMES}, got {sorted(tensors)}")
+        for name in SSM_NAMES:
+            setattr(self, name, weight(tensors[name]))
+
+
+def init_ssm(cfg: ModelConfig, gen: torch.Generator) -> SSM:
+    """A Mamba-2 mixer at the JAX package's scales (``layers.py:371``):
+    separate projections (w_z | w_x | w_bc | w_dt) scaled by 1/sqrt(d), conv
+    kernels by 0.5 with zero biases, ``a_log = log(linspace(1, 8, h))``
+    (A = -exp(a_log)), unit d_skip and norm, zero dt_bias."""
+    dt, dev = torch_dtype(cfg), gen.device
+    d = cfg.d_model
+    di, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    sc = 1.0 / math.sqrt(d)
+    return SSM(
+        w_z=normal(gen, (d, di), sc, dt),
+        w_x=normal(gen, (d, di), sc, dt),
+        w_bc=normal(gen, (d, 2 * n), sc, dt),
+        w_dt=normal(gen, (d, h), sc, dt),
+        conv_x_w=normal(gen, (cfg.ssm_conv_kernel, di), 0.5, dt),
+        conv_x_b=torch.zeros(di, dtype=dt, device=dev),
+        conv_bc_w=normal(gen, (cfg.ssm_conv_kernel, 2 * n), 0.5, dt),
+        conv_bc_b=torch.zeros(2 * n, dtype=dt, device=dev),
+        a_log=torch.log(torch.linspace(1.0, 8.0, h, dtype=torch.float32, device=dev)),
+        d_skip=torch.ones(h, dtype=torch.float32, device=dev),
+        dt_bias=torch.zeros(h, dtype=torch.float32, device=dev),
+        norm_w=torch.ones(di, dtype=dt, device=dev),
+        out_proj=normal(gen, (di, d), 1.0 / math.sqrt(di), dt),
+    )
+
+
+def _causal_depthwise_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                           ) -> torch.Tensor:
+    """xbc (b, s, ch), w (k, ch): the depthwise causal conv along s, summed
+    in f32 over the k shifted slices of the zero-padded input in order, plus
+    the bias, in xbc's type (``layers.py:403``)."""
+    ksz, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, ksz - 1, 0))
+    out = torch.zeros(xbc.shape, dtype=torch.float32, device=xbc.device)
+    for i in range(ksz):
+        out = out + pad[:, i:i + s, :].float() * w[i][None, None, :].float()
+    return (out + b[None, None, :].float()).to(xbc.dtype)
+
+
+def make_ssm_cache(cfg: ModelConfig, batch: int, device: torch.device) -> dict:
+    """A zeroed Mamba-2 decode state: the last k - 1 inputs of each conv
+    (``conv_x`` (batch, k-1, d_inner), ``conv_bc`` (batch, k-1, 2n)) and the
+    f32 SSD state ``ssm`` (batch, h, head_dim, n); the convs' inputs in
+    the model dtype."""
+    dt = torch_dtype(cfg)
+    di, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    k1 = cfg.ssm_conv_kernel - 1
+    return {
+        "conv_x": torch.zeros((batch, k1, di), dtype=dt, device=device),
+        "conv_bc": torch.zeros((batch, k1, 2 * n), dtype=dt, device=device),
+        "ssm": torch.zeros((batch, h, cfg.ssm_head_dim, n), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def ssm_forward(
+    cfg: ModelConfig,
+    p: SSM,
+    x: torch.Tensor,              # (b, s, d)
+    cache: dict | None = None,    # {"conv_x", "conv_bc", "ssm"}
+) -> tuple[torch.Tensor, dict | None]:
+    """The Mamba-2 mixer's output (b, s, d) and its new decode state
+    (``layers.py:419``; ``None`` without a cache). With a cache and s == 1,
+    one step of the recurrence in f32 from the cached conv inputs and SSD
+    state; otherwise the causal convs and the SSD scan (``ops.ssd_scan``:
+    the kernel on the card) over the whole sequence from an empty state,
+    and, with a cache, the state after it (:func:`_ssm_state_after_prefill`).
+    The casts are the reference's: a prefill's dt in the model's type
+    before the scan, a decode step's in f32; d_skip·x added in f32 and cast;
+    the gate ``y ⊙ silu(z)`` in the model's type before the RMSNorm over
+    d_inner."""
+    b, s, _ = x.shape
+    di, n, h, hd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    z = x @ p.w_z                                             # (b, s, di)
+    xr = x @ p.w_x                                            # (b, s, di)
+    bc = x @ p.w_bc                                           # (b, s, 2n)
+    dt_raw = x @ p.w_dt                                       # (b, s, h)
+    a = -torch.exp(p.a_log)                                   # (h,)
+
+    new_cache = cache
+    if cache is not None and s == 1:
+        # decode: one recurrence step
+        hist_x = torch.cat([cache["conv_x"], xr], dim=1)      # (b, k, di)
+        hist_bc = torch.cat([cache["conv_bc"], bc], dim=1)
+        cx = torch.einsum("bkc,kc->bc", hist_x.float(), p.conv_x_w.float()) \
+            + p.conv_x_b.float()
+        cbc = torch.einsum("bkc,kc->bc", hist_bc.float(), p.conv_bc_w.float()) \
+            + p.conv_bc_b.float()
+        cx, cbc = F.silu(cx), F.silu(cbc)
+        xt = cx.reshape(b, h, hd)                             # (b, h, hd)
+        bmat, cmat = cbc[:, :n], cbc[:, n:]
+        dtv = F.softplus(dt_raw[:, 0].float() + p.dt_bias)    # (b, h) f32
+        decay = torch.exp(dtv * a[None, :])                   # (b, h)
+        upd = torch.einsum("bhp,bn->bhpn", xt * dtv[..., None], bmat)
+        hstate = cache["ssm"] * decay[..., None, None] + upd
+        yt = torch.einsum("bhpn,bn->bhp", hstate, cmat)
+        yt = yt + p.d_skip[None, :, None] * xt
+        y = yt.reshape(b, 1, di).to(x.dtype)
+        new_cache = {"conv_x": hist_x[:, 1:], "conv_bc": hist_bc[:, 1:], "ssm": hstate}
+    else:
+        cx = F.silu(_causal_depthwise_conv(xr, p.conv_x_w, p.conv_x_b).float()).to(x.dtype)
+        cbc = F.silu(_causal_depthwise_conv(bc, p.conv_bc_w, p.conv_bc_b).float()).to(x.dtype)
+        xin = cx.reshape(b, s, h, hd)
+        bmat, cmat = cbc[..., :n], cbc[..., n:]               # strided views
+        dtv = F.softplus(dt_raw.float() + p.dt_bias).to(x.dtype)
+        y = ops.ssd_scan(xin, dtv, a, bmat, cmat)
+        y = y + (p.d_skip[None, None, :, None] * xin.float()).to(x.dtype)
+        y = y.reshape(b, s, di)
+        if cache is not None:
+            new_cache = _ssm_state_after_prefill(cfg, p, xin, dtv, bmat, xr, bc)
+
+    y = ops.rmsnorm(y * F.silu(z.float()).to(x.dtype), p.norm_w, eps=cfg.norm_eps)
+    return y @ p.out_proj, new_cache
+
+
+def _ssm_state_after_prefill(cfg: ModelConfig, p: SSM, xin: torch.Tensor,
+                             dtv: torch.Tensor, bmat: torch.Tensor, xr: torch.Tensor,
+                             bc: torch.Tensor) -> dict:
+    """The decode state after a prefix consumed from an empty state
+    (``layers.py:491``): the last k - 1 conv inputs (zero-padded on the
+    left when the prefix is shorter) and ``Σ_t exp(total - cum_t)·(x·dt)_t
+    B_tᵀ`` over the whole prefix, in f32."""
+    b, s, h, hd = xin.shape
+    a = -torch.exp(p.a_log)
+    cum = torch.cumsum(dtv.float() * a[None, None, :], dim=1)   # (b, s, h)
+    w = torch.exp(cum[:, -1:, :] - cum)                          # (b, s, h)
+    xdt = xin.float() * dtv.float()[..., None]                   # (b, s, h, hd)
+    hstate = torch.matmul((xdt * w[..., None]).reshape(b, s, h * hd).transpose(1, 2),
+                          bmat.float()).reshape(b, h, hd, -1)
+    k1 = cfg.ssm_conv_kernel - 1
+
+    def tail(arr: torch.Tensor) -> torch.Tensor:
+        if s >= k1:  # a copy: a view would keep the whole prefix's projection alive
+            return arr[:, s - k1:, :].clone()
+        return F.pad(arr, (0, 0, k1 - s, 0))
+
+    return {"conv_x": tail(xr), "conv_bc": tail(bc), "ssm": hstate}

@@ -1,18 +1,21 @@
 """The decoder LM on PyTorch: init / forward / loss / prefill / decode, the
-counterpart of ``repro.models.transformer`` for dense decoders.
+counterpart of ``repro.models.transformer`` for dense decoders and Mamba-2.
 
 The model is an ``nn.Module`` (:class:`Transformer`) holding one
 :class:`Block` per layer in an ``nn.ModuleList``; the JAX package stacks
 the layers on a leading group axis and scans over them, the port loops.
 The functions keep the JAX package's signatures (``forward(cfg, params,
 tokens, ...)``) so the tests compare like with like. The decode cache is a
-list with one ``{"k", "v"}`` per layer, written in place (the JAX package
-returns a new stacked cache; in place saves the second copy).
+list with one entry per layer: an attention layer's ``{"k", "v"}``, written
+in place (the JAX package returns a new stacked cache; in place saves the
+second copy), or a Mamba-2 layer's ``{"conv_x", "conv_bc", "ssm"}``, whose
+tensors each forward replaces with the state ``ssm_forward`` returns.
 
-Served and trained here: dense decoders whose layers are all ("attn",
-"mlp") and whose inputs are tokens. MoE and Mamba-2 layers and the VLM and
-audio frontends come with later slices of the port and raise
-``NotImplementedError``.
+Served here: models whose layers are ("attn", "mlp") or ("ssm", None)
+(Mamba-2) and whose inputs are tokens; trained: the dense decoders. The SSD
+scan has no gradient, so a forward that records a graph through a Mamba-2
+layer raises ``NotImplementedError``, as do MoE layers and the VLM and
+audio frontends, which come with later slices of the port.
 
 Rematerialisation (``cfg.remat_policy``) wraps each layer of a forward that
 records a graph in ``torch.utils.checkpoint`` (non-reentrant), the
@@ -53,12 +56,8 @@ REMAT_POLICIES = ("none", "block", "dots", "planner")
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not serve yet."""
-    for mixer, mlp in cfg.pattern:
-        if mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: the {mixer!r} (Mamba-2 SSD) mixer comes with the "
-                "Mamba-2 slice of the port")
-        if mlp != "mlp":
+    for _, mlp in cfg.pattern:
+        if mlp not in ("mlp", None):
             raise NotImplementedError(
                 f"{cfg.name}: the {mlp!r} feed-forward (MoE) comes with a later "
                 "slice of the port")
@@ -68,15 +67,24 @@ def check_supported(cfg: ModelConfig) -> None:
             "of the port")
 
 
-class Block(nn.Module):
-    """One layer: norm1, the attention mixer, norm2, the MLP."""
+def layer_kinds(cfg: ModelConfig) -> list[tuple[str, str | None]]:
+    """Each layer's (mixer, mlp): ``cfg.pattern`` repeated over the groups
+    (group g's sub-layer i is layer ``g * len(cfg.pattern) + i``)."""
+    return [cfg.pattern[n % len(cfg.pattern)] for n in range(cfg.n_layers)]
 
-    def __init__(self, norm1: torch.Tensor, mixer: L.Attention,
-                 norm2: torch.Tensor, ffn: L.MLP):
+
+class Block(nn.Module):
+    """One layer: norm1, the mixer (attention or Mamba-2), and norm2 with
+    the MLP, or neither where the layer has no MLP (Mamba-2)."""
+
+    def __init__(self, norm1: torch.Tensor, mixer: L.Attention | L.SSM,
+                 norm2: torch.Tensor | None = None, ffn: L.MLP | None = None):
         super().__init__()
+        if (norm2 is None) != (ffn is None):
+            raise ValueError("a block has both norm2 and ffn or neither")
         self.norm1 = L.weight(norm1)
         self.mixer = mixer
-        self.norm2 = L.weight(norm2)
+        self.norm2 = None if norm2 is None else L.weight(norm2)
         self.ffn = ffn
 
 
@@ -118,8 +126,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     dt, d, gen = L.torch_dtype(cfg), cfg.d_model, generator
     ones = lambda: torch.ones(d, dtype=dt, device=dev)  # noqa: E731
     embed = L.normal(gen, (cfg.vocab_padded, d), 1.0 / math.sqrt(d), dt)
-    layers = [Block(ones(), L.init_attention(cfg, gen), ones(), L.init_mlp(cfg, gen))
-              for _ in range(cfg.n_layers)]
+    layers = []
+    for mixer, mlp in layer_kinds(cfg):
+        mix = L.init_attention(cfg, gen) if mixer == "attn" else L.init_ssm(cfg, gen)
+        ffn = () if mlp is None else (ones(), L.init_mlp(cfg, gen))
+        layers.append(Block(ones(), mix, *ffn))
     lm_head = (None if cfg.tie_embeddings
                else L.normal(gen, (d, cfg.vocab_padded), 1.0 / math.sqrt(d), dt))
     return Transformer(cfg, embed, layers, ones(), lm_head)
@@ -139,7 +150,15 @@ def embed_inputs(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
 
 def _mixer_out(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: torch.Tensor,
                cache: dict | None = None, cache_pos: int | None = None) -> torch.Tensor:
+    """The mixer on ``rmsnorm(x)``. A Mamba-2 layer's cache entry gets the
+    state ``ssm_forward`` returns (an attention layer's is written in
+    place)."""
     h = ops.rmsnorm(x, layer.norm1, eps=cfg.norm_eps)
+    if isinstance(layer.mixer, L.SSM):
+        y, state = L.ssm_forward(cfg, layer.mixer, h, cache=cache)
+        if cache is not None:
+            cache.update(state)
+        return y
     return L.attention_forward(cfg, layer.mixer, h, positions, cache=cache,
                                cache_pos=cache_pos)
 
@@ -151,9 +170,10 @@ def _ffn_out(cfg: ModelConfig, layer: Block, x: torch.Tensor) -> torch.Tensor:
 
 def _block(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: torch.Tensor,
            cache: dict | None = None, cache_pos: int | None = None) -> torch.Tensor:
-    """One layer: ``x + mixer_out``, then ``+ ffn_out`` (= ``block_out``)."""
+    """One layer: ``x + mixer_out``, then ``+ ffn_out`` where the layer has
+    an MLP (= ``block_out``)."""
     x = x + _mixer_out(cfg, layer, x, positions, cache, cache_pos)
-    return x + _ffn_out(cfg, layer, x)
+    return x if layer.ffn is None else x + _ffn_out(cfg, layer, x)
 
 
 def _ffn_after(cfg: ModelConfig, layer: Block, x: torch.Tensor,
@@ -187,6 +207,8 @@ def _remat_block(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: tor
         if "mixer_out" not in (save_names or ACT_NAMES):
             return remat(_block, cfg, layer, x, positions)
         y = remat(_mixer_out, cfg, layer, x, positions)
+        if layer.ffn is None:
+            return x + y
         return (x + y) + remat(_ffn_after, cfg, layer, x, y)
     raise ValueError(f"remat policy {policy!r} not in {REMAT_POLICIES}")
 
@@ -196,16 +218,18 @@ def forward(
     params: Transformer,
     tokens: torch.Tensor,            # (b, s)
     patch_embeds: torch.Tensor | None = None,
-    cache: list | None = None,       # one {"k", "v"} per layer
+    cache: list | None = None,       # one entry per layer (make_cache)
     cache_pos: int | None = None,
     save_names: tuple[str, ...] = (),
 ):
     """Returns ``(logits, moe_aux, cache)``: logits (b, s, vocab_padded)
     with -1e9 on the padded vocabulary; ``moe_aux`` is 0 (no MoE layers
     here). Without a cache every attention goes through the flash-attention
-    forward, and a forward that records a graph rematerialises each layer
-    under ``cfg.remat_policy`` (``save_names``: the planner's choice, for
-    ``planner``); with a cache, k/v are written at ``cache_pos`` in place."""
+    forward and every Mamba-2 layer through the SSD scan, and a forward that
+    records a graph rematerialises each layer under ``cfg.remat_policy``
+    (``save_names``: the planner's choice, for ``planner``); with a cache,
+    k/v are written at ``cache_pos`` in place and each Mamba-2 layer's state
+    is replaced (s > 1: the state after the prompt, from an empty one)."""
     x = embed_inputs(cfg, params, tokens, patch_embeds)
     b, s, _ = x.shape
     start = 0 if cache_pos is None else int(cache_pos)
@@ -260,11 +284,14 @@ def lm_loss(cfg: ModelConfig, params: Transformer, batch: dict,
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: str | torch.device | None = None) -> list[dict]:
-    """A zeroed decode cache, one ``{"k", "v"}`` of (batch, kv, max_len, hd)
-    per layer, on ``device`` (default: the card)."""
+    """A zeroed decode cache on ``device`` (default: the card), one entry
+    per layer: ``{"k", "v"}`` of (batch, kv, max_len, hd) for attention,
+    ``{"conv_x", "conv_bc", "ssm"}`` (``layers.make_ssm_cache``) for
+    Mamba-2."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [L.make_kv_cache(cfg, batch, max_len, dev) for _ in range(cfg.n_layers)]
+    return [L.make_kv_cache(cfg, batch, max_len, dev) if mixer == "attn"
+            else L.make_ssm_cache(cfg, batch, dev) for mixer, _ in layer_kinds(cfg)]
 
 
 def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,

@@ -3,12 +3,13 @@ PyTorch versions, which ``tests/test_torch_dataplane.py`` and
 ``tests/test_torch_model_kernels.py`` hold against the JAX package) at
 ragged sizes, the wrappers' refusals, the launch counters, a small refresh
 round and a small partitioned incremental scenario card against CPU, and
-small-model serving and training steps card against CPU. The data-plane
-kernels are compared bitwise; RMSNorm and the flash forward within the JAX
-kernel tests' tolerances (1e-5 / 2e-2 and 2e-5 / 3e-2 in f32 / bf16), the
-flash backward within 2e-4 in f32 (the JAX gradient test's) and 3e-2 in
-bf16 (one bf16 rounding of each gradient, as the forward's). Needs a card;
-every test skips without one:
+small-model serving (dense and Mamba-2) and training steps card against
+CPU. The data-plane kernels are compared bitwise; RMSNorm, the flash forward
+and the SSD scan within the JAX kernel tests' tolerances (1e-5 / 2e-2,
+2e-5 / 3e-2 and 2e-4 / 5e-2 in f32 / bf16), the flash backward within 2e-4
+in f32 (the JAX gradient test's) and 3e-2 in bf16 (one bf16 rounding of
+each gradient, as the forward's). Needs a card; every test skips without
+one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -21,6 +22,7 @@ import repro_torch.mv as mv
 from repro_torch import configs, models, serve
 from repro_torch.kernels import flash_attention_bwd, flash_attention_fwd, ops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.mv import dataplane as dp
 from repro_torch.mv import tableops as T
 
@@ -356,7 +358,7 @@ def test_small_model_serving_card_equals_cpu(dev):
     ops.reset_launches()
     got = serve.greedy_generate(cfg, card_model, prompt, 6)
     assert ops.launches == {"rmsnorm": (2 * cfg.n_layers + 1) * 6, "flash_fwd": 0,
-                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ssd_scan": 0}
     assert torch.equal(got.cpu(), serve.greedy_generate(cfg, cpu_model, prompt, 6, "cpu"))
     ops.reset_launches()
     card_logits, _, _ = models.forward(cfg, card_model, prompt.to(dev))
@@ -411,7 +413,7 @@ def test_small_train_steps_card_equal_cpu(dev):
     assert out["card"][1] == {"rmsnorm": n * (4 * cfg.n_layers + 1),
                               "flash_fwd": n * 2 * cfg.n_layers,
                               "flash_bwd_dq": n * cfg.n_layers,
-                              "flash_bwd_dkv": n * cfg.n_layers}
+                              "flash_bwd_dkv": n * cfg.n_layers, "ssd_scan": 0}
     for mc, mg in zip(out["cpu"][0], out["card"][0]):
         for key in ("loss", "grad_norm"):
             torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-5, atol=0)
@@ -420,3 +422,96 @@ def test_small_train_steps_card_equal_cpu(dev):
                       for n, p in states["card"]["params"].named_parameters()])
     assert float(diff.max()) <= 1e-2 / 4
     assert float((diff > 1e-5).float().mean()) <= 1e-3
+
+
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+SSD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # of ||want||
+SSD_CASES = [  # b, s, h, p, n, chunk
+    (2, 20, 8, 16, 16, 64),     # the reduced configs: chunk = s = 20
+    (1, 64, 2, 16, 8, 16),
+    (2, 128, 1, 32, 16, 32),
+    (1, 96, 3, 8, 8, 32),
+    (1, 72, 2, 40, 100, 24),    # widths that are not powers of two
+    (4, 512, 80, 64, 128, 64),  # mamba2-2.7b's serving prefill
+]
+
+
+def ssd_inputs(b, s, h, p, n, dtype, seed=7):
+    """x, dt, a (f32), and B and C as the two halves of one (b, s, 2n)
+    tensor, as the model hands them."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p))
+    dt = np.logaddexp(rng.standard_normal((b, s, h)), 0.0) * 0.1
+    a = -np.exp(rng.standard_normal(h) * 0.5)
+    bc = rng.standard_normal((b, s, 2 * n)) / np.sqrt(n)
+    x, dt, bc = (torch.from_numpy(t.astype(np.float32)).to(dtype) for t in (x, dt, bc))
+    return x, dt, torch.from_numpy(a.astype(np.float32)), bc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+def test_ssd_scan_kernel_matches_cpu(dev, b, s, h, p, n, chunk, dtype):
+    x, dt, a, bc = ssd_inputs(b, s, h, p, n, dtype)
+    ops.reset_launches()
+    xd, dtd, ad, bcd = (t.to(dev) for t in (x, dt, a, bc))
+    got = ssd_scan(xd, dtd, ad, bcd[..., :n], bcd[..., n:], chunk=chunk)
+    assert ops.launches["ssd_scan"] == 1
+    want = ssd_scan(x, dt, a, bc[..., :n], bc[..., n:], chunk=chunk)
+    close((want,), (got,), SSD_TOL[dtype], f"{(b, s, h, p, n, chunk)} {dtype}")
+    g, w = got.cpu().float(), want.float()
+    rel, rms = float((g - w).norm() / w.norm()), float(w.square().mean().sqrt())
+    assert rel <= SSD_REL_TOL[dtype], f"||got - want|| / ||want|| = {rel}, RMS |want| {rms}"
+    if s <= 128 and dtype == torch.float32:   # and the exact recurrence
+        close((kref.ssd_scan_sequential(x, dt, a, bc[..., :n], bc[..., n:]),), (got,),
+              SSD_TOL[dtype])
+
+
+def test_ssd_scan_carries_an_impulse_across_chunks(dev):
+    x = torch.zeros(1, 64, 1, 4, device=dev)
+    x[0, 0] = 1.0
+    dt = torch.full((1, 64, 1), 0.05, device=dev)
+    a = torch.tensor([-0.1], device=dev)
+    ones = torch.ones(1, 64, 4, device=dev)
+    y = ssd_scan(x, dt, a, ones, ones, chunk=16)
+    assert float(y[0, -1].abs().sum()) > 0
+    close((kref.ssd_scan_sequential(*(t.cpu() for t in (x, dt, a, ones, ones))),), (y,),
+          1e-5)
+
+
+def test_ssd_scan_wrapper_raises_instead_of_falling_back(dev):
+    x, dt, a, bc = (t.to(dev) for t in ssd_inputs(1, 128, 2, 16, 8, torch.float32))
+    bm, cm = bc[..., :8], bc[..., 8:]
+    with pytest.raises(ValueError, match="device"):
+        ssd_scan(x, dt, a.cpu(), bm, cm)
+    with pytest.raises(ValueError, match="beyond"):
+        ssd_scan(x, dt, a, bm, cm, chunk=128)
+    wide = torch.ones(1, 64, 2, 65, device=dev)
+    with pytest.raises(ValueError, match="beyond"):
+        ssd_scan(wide, dt[:, :64], a, bm[:, :64], cm[:, :64])
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x, dt, a, bc[..., ::2], cm)
+    with pytest.raises(TypeError):
+        ssd_scan(x.half(), dt.half(), a, bm.half(), cm.half())
+    with pytest.raises(NotImplementedError):
+        ssd_scan(x.requires_grad_(True), dt, a, bm, cm)
+
+
+def test_small_mamba_serving_card_equals_cpu(dev):
+    """Reduced mamba2-2.7b in f32: the same greedy tokens card vs CPU, and
+    forward logits within 1e-4; the scan launches once per layer and
+    prefill, RMSNorm twice per layer and once at the final norm per
+    forward, and no flash kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_config("mamba2-2.7b").reduced(dtype="float32")
+    cpu_model = models.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card_model = models.init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(dev)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 20)))
+    ops.reset_launches()
+    got = serve.greedy_generate(cfg, card_model, prompt, 6)
+    assert ops.launches == {"rmsnorm": (2 * cfg.n_layers + 1) * 6, "flash_fwd": 0,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "ssd_scan": cfg.n_layers}
+    assert torch.equal(got.cpu(), serve.greedy_generate(cfg, cpu_model, prompt, 6, "cpu"))
+    card_logits, _, _ = models.forward(cfg, card_model, prompt.to(dev))
+    cpu_logits, _, _ = models.forward(cfg, cpu_model, prompt)
+    torch.testing.assert_close(card_logits.cpu(), cpu_logits, atol=1e-4, rtol=1e-4)

@@ -31,6 +31,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 BANNED = ("jax", "jaxlib", "ml_dtypes", "repro")
 _SMALL = tcfg.get_config("stablelm-12b").reduced()
+_MAMBA = tcfg.get_config("mamba2-2.7b").reduced()
 
 
 def _small_cpu_model():
@@ -48,7 +49,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     assert "repro_torch.mv.dataplane" in mods and len(mods) >= 20
     assert {"repro_torch.train.loop", "repro_torch.train.step", "repro_torch.core.planner",
             "repro_torch.checkpoint.ckpt", "repro_torch.data.pipeline",
-            "repro_torch.runtime.ft", "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.runtime.ft", "repro_torch.launch.train",
+            "repro_torch.kernels.ssd_scan"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -89,6 +91,8 @@ def test_no_jax_or_repro_import_in_source(path):
     lambda tmp: convert.table_from_numpy({"key": np.arange(3)}),
     lambda tmp: tm.init_params(_SMALL, torch.Generator()),
     lambda tmp: tm.make_cache(_SMALL, 1, 4),
+    lambda tmp: tm.init_params(_MAMBA, torch.Generator()),
+    lambda tmp: tm.make_cache(_MAMBA, 1, 4),
     lambda tmp: greedy_generate(_SMALL, _small_cpu_model(),
                                 torch.zeros(1, 2, dtype=torch.int64), 2),
     lambda tmp: convert.params_from_reference(_SMALL, {}),
@@ -102,7 +106,8 @@ def test_no_jax_or_repro_import_in_source(path):
                                    "--ckpt-dir", str(tmp / "ck"),
                                    "--data-dir", str(tmp / "d")]),
 ], ids=["realize_workload", "make_base_table", "empty_like", "DiskStore",
-        "table_from_numpy", "init_params", "make_cache", "greedy_generate",
+        "table_from_numpy", "init_params", "make_cache", "init_params_mamba2",
+        "make_cache_mamba2", "greedy_generate",
         "params_from_reference", "train_state_from_reference",
         "materialize_dataset", "build_pipeline_workload", "BatchIterator",
         "run_training", "launch.train"])
