@@ -7,7 +7,11 @@ Hopper card.
 Phases, in order; any failure raises and exits non-zero:
 
 1. card    — the card's name and power limit (``nvidia-smi``);
-2. build   — ``nvcc`` for every CUDA source of the port, all in parallel;
+2. build   — ``nvcc`` for every CUDA source of the port, all in parallel,
+             logging ``ptxas -v`` (registers, spills; each instantiation of
+             the tensor-core flash kernels by name); the SASS of the
+             tensor-core forward and dk/dv kernels must hold bf16 HMMA in
+             their main loops;
 3. kernels — each hand-written kernel against its plain PyTorch version on
              the card: the data-plane kernels bitwise at the main path's
              shapes (16,777,216 rows; a 4,194,304-key join index; P = 8
@@ -17,7 +21,9 @@ Phases, in order; any failure raises and exits non-zero:
              flash-attention forward within the JAX kernel tests'
              tolerances at the serving path's shapes (rows of 5120;
              b 4, 32 query over 8 kv heads, 544 positions, head dim 160),
-             f32 and bf16, with ragged and sq != sk cases; the two
+             f32 and bf16, with ragged and sq != sk cases (bf16 forward and
+             dk/dv up to head dim 256 / 128 on the tensor cores, the rest
+             on the CUDA cores); the two
              flash-attention backward kernels (dq, dk/dv) within 2e-4 / 3e-2
              at the training path's shape (b 2, 32 over 32 heads, 4096
              positions, head dim 80, causal; the forward there too), the
@@ -75,7 +81,8 @@ Phases, in order; any failure raises and exits non-zero:
              ``block``): 2 steps of 4 rows of 4096 tokens in 2 microbatches;
              finite losses and grad norms, the kernels' launches equal to
              the count the code predicts, step seconds, tokens/s, peak
-             device memory, the final write-behind save; one more step
+             device memory, the final write-behind save, every flash_fwd and
+             flash_bwd_dkv launch on the tensor cores; one more step
              under ``torch.profiler``. Then reduced stablelm-3b with GQA in
              f32, card against CPU (two train steps agree; the CPU launches
              no kernel), and a bitwise checkpoint save/restore round trip;
@@ -123,6 +130,10 @@ ROUND_KERNELS = ("filter_gt", "map_derived", "fixed_point_encode", "probe_sorted
 # SASS functions of the two integer kernels, whose operation bound is their
 # instructions per row (read from the build) over the card's issue rate.
 HASH_SASS = {"hash64": "hash64_kernel", "pid_hist": "pid_hist_kernelILb1"}
+# SASS functions of the tensor-core flash kernels at the training path's
+# head dim (80, 16-byte copies), whose main loop must run on bf16 HMMA.
+MMA_SASS = {"flash_fwd": "flash_fwd_mma_kernelILi80ELb1E",
+            "flash_bwd_dkv": "flash_bwd_dkv_mma_kernelILi80ELb1E"}
 
 # Which Pallas kernel each port kernel replaces (JAX package, file:line).
 REPLACES = {
@@ -141,13 +152,23 @@ REPLACES.update({
     "flash_bwd_dkv": "src/repro/kernels/flash_attention.py:209",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:28",
 })
+REPLACES["flash_fwd_cuda_core"] = REPLACES["flash_fwd"]
+REPLACES["flash_bwd_dkv_cuda_core"] = REPLACES["flash_bwd_dkv"]
 SOURCE = "src/repro_torch/csrc/dataplane.cu"
+# flash_fwd and flash_bwd_dkv are the bf16 tensor-core kernels;
+# *_cuda_core the CUDA-core kernels that f32 (and dk/dv above head dim 128)
+# take.
 MODEL_SOURCES = {"rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
                  "rmsnorm_residual": "src/repro_torch/csrc/rmsnorm.cu",
-                 "flash_fwd": "src/repro_torch/csrc/flash_attention.cu",
+                 "flash_fwd": "src/repro_torch/csrc/flash_attention_mma.cu",
+                 "flash_fwd_cuda_core": "src/repro_torch/csrc/flash_attention.cu",
                  "flash_bwd_dq": "src/repro_torch/csrc/flash_attention.cu",
-                 "flash_bwd_dkv": "src/repro_torch/csrc/flash_attention.cu",
+                 "flash_bwd_dkv": "src/repro_torch/csrc/flash_attention_mma.cu",
+                 "flash_bwd_dkv_cuda_core": "src/repro_torch/csrc/flash_attention.cu",
                  "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
+# The launch counters of the flash kernels' two variants (kernels.cuda).
+FLASH_VARIANTS = ("flash_fwd/mma", "flash_fwd/cuda_core", "flash_bwd_dkv/mma",
+                  "flash_bwd_dkv/cuda_core")
 # The serving path: stablelm-12b at full width, 4 requests of 512-token
 # prompts, 32 new tokens each; the oracle cuts depth to 2 layers (f32).
 SERVE_ARCH = "stablelm-12b"
@@ -231,14 +252,9 @@ def issue_rate(torch) -> float:
     return sms * ISSUE_PER_SM * mhz * 1e6
 
 
-def sass_per_row(lib_path, functions: dict[str, str]) -> dict[str, float]:
-    """SASS instructions each kernel executes per row, read from the built
-    library with ``cuobjdump -sass``: the instructions of its main loop
-    (the backward branch whose body holds the most global loads), plus
-    those of any routine the loop calls up to its return — the 64-bit
-    remainder ``% P`` compiles to, as the card has no 64-bit divide — over
-    the rows one trip handles (its global loads: unrolled loops load
-    several)."""
+def sass_functions(lib_path) -> dict[str, list[tuple[int, str]]]:
+    """Every function of a built library with its SASS instructions
+    (address, text), read with ``cuobjdump -sass``."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
@@ -250,18 +266,39 @@ def sass_per_row(lib_path, functions: dict[str, str]) -> dict[str, float]:
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
         if cur is not None and m:
             cur.append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def sass_loops(ins) -> list[list[tuple[int, str]]]:
+    """The body of every loop of a function's SASS: each backward branch
+    with the instructions from its target to itself."""
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    loops = []
+    for i, (a, text) in enumerate(ins):
+        m = re.search(r"\bBRA\s+(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < a:
+            loops.append(ins[at[int(m.group(1), 16)]:i + 1])
+    return loops
+
+
+def sass_per_row(lib_path, functions: dict[str, str]) -> dict[str, float]:
+    """SASS instructions each kernel executes per row, read from the built
+    library with ``cuobjdump -sass``: the instructions of its main loop
+    (the backward branch whose body holds the most global loads), plus
+    those of any routine the loop calls up to its return — the 64-bit
+    remainder ``% P`` compiles to, as the card has no 64-bit divide — over
+    the rows one trip handles (its global loads: unrolled loops load
+    several)."""
+    funcs = sass_functions(lib_path)
     out = {}
     for kernel, fn in functions.items():
         ins = next(v for k, v in funcs.items() if fn in k)
         at = {a: i for i, (a, _) in enumerate(ins)}
         loops = []
-        for i, (a, text) in enumerate(ins):
-            m = re.search(r"\bBRA\s+(0x[0-9a-f]+)", text)
-            if m and int(m.group(1), 16) < a:
-                body = ins[at[int(m.group(1), 16)]:i + 1]
-                loads = sum(bool(re.search(r"\bLDG\b", t)) for _, t in body)
-                if loads:
-                    loops.append((loads, body))
+        for body in sass_loops(ins):
+            loads = sum(bool(re.search(r"\bLDG\b", t)) for _, t in body)
+            if loads:
+                loops.append((loads, body))
         loads, body = max(loops, key=lambda lb: (lb[0], len(lb[1])))
         count = len(body)
         for _, text in body:
@@ -272,6 +309,26 @@ def sass_per_row(lib_path, functions: dict[str, str]) -> dict[str, float]:
                          if re.search(r"\bRET\b", ins[k][1]))
                 count += k - j + 1
         out[kernel] = count / loads
+    return out
+
+
+def mma_main_loops(lib_path, functions: dict[str, str]) -> dict[str, dict[str, int]]:
+    """Tensor-core products, ldmatrix loads and cp.async copies in the main
+    loop (the longest loop) of each tensor-core kernel, read from its SASS;
+    raise if a main loop has no bf16 HMMA: the kernel would not be running
+    on the tensor cores."""
+    funcs = sass_functions(lib_path)
+    out = {}
+    for kernel, fn in functions.items():
+        ins = next(v for k, v in funcs.items() if fn in k)
+        body = max(sass_loops(ins), key=len)
+        out[kernel] = {op: sum(bool(re.search(rf"(^|\s){re.escape(op)}", text))
+                               for _, text in body)
+                       for op in ("HMMA.16816.F32.BF16", "LDSM", "LDGSTS")}
+        out[kernel]["instructions"] = len(body)
+        if not out[kernel]["HMMA.16816.F32.BF16"]:
+            raise AssertionError(f"{kernel} ({fn}): no HMMA.16816.F32.BF16 in its main loop "
+                                 f"({len(body)} instructions)")
     return out
 
 
@@ -515,8 +572,11 @@ def model_kernel_cases(torch, dev):
         return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
 
     def case(kernel, name, dn, inputs, kfn, pfn, lfn, ops, lib_minus=None, samples=21):
+        variant = None
+        if kernel in ("flash_fwd", "flash_bwd_dkv"):   # which of its two kernels runs
+            variant = fa.variant(kernel, inputs[0].dtype, inputs[0].shape[-1])
         return dict(kernel=kernel, case=name, dn=dn, inputs=inputs, kfn=kfn, pfn=pfn,
-                    lfn=lfn, lib_minus=lib_minus, ops=ops, samples=samples)
+                    lfn=lfn, lib_minus=lib_minus, ops=ops, samples=samples, variant=variant)
 
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -701,10 +761,12 @@ def model_kernel_phase(torch, dev, bw):
             ms=time_ms(torch, c["kfn"], **timing), plain_ms=time_ms(torch, c["pfn"], **timing),
             library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
+            variant=c.get("variant"),
         )
         rows.append(row)
-        log(f"kernel {kernel:<17} {case:<38} within {tol}  max_abs_err={err} "
-            f"rel_err={rel} (limit {REL_TOL[dn]}, RMS |plain| {rms}) ms={row['ms']} plain_ms={row['plain_ms']} "
+        log(f"kernel {kernel:<17} {case:<38} {c.get('variant') or '':<9} within {tol}  "
+            f"max_abs_err={err} rel_err={rel} (limit {REL_TOL[dn]}, RMS |plain| {rms}) "
+            f"ms={row['ms']} plain_ms={row['plain_ms']} "
             f"library_ms={row['library_ms']} bound_ms={row['bound_ms']} "
             f"({row['bound_by']}, {nbytes} B, bytes {bytes_ms} ms, "
             f"{n_ops} ops {ops_ms} ms)")
@@ -827,7 +889,8 @@ def serve_phase(torch, np, dev):
         raise AssertionError(f"generated tokens {tuple(out.shape)} out of range")
     forwards = 1 + (SERVE_NEW - 1)
     want = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards, "rmsnorm/residual": 0,
-            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ssd_scan": 0}
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ssd_scan": 0,
+            **dict.fromkeys(FLASH_VARIANTS, 0)}
     if serve_launches != want:
         raise AssertionError(f"serving launches {serve_launches}, expected {want}")
     log(f"serve: {SERVE_BATCH} requests x {SERVE_PROMPT}-token prompts, "
@@ -862,7 +925,8 @@ def serve_phase(torch, np, dev):
     oracle_launches = {**ops.launches, **ops.variant_launches}
     want = {"rmsnorm": (2 * ORACLE_LAYERS + 1) * (2 + SERVE_NEW),
             "rmsnorm/residual": 0, "flash_fwd": ORACLE_LAYERS, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "ssd_scan": 0}
+            "flash_bwd_dkv": 0, "ssd_scan": 0, **dict.fromkeys(FLASH_VARIANTS, 0),
+            "flash_fwd/cuda_core": ORACLE_LAYERS}   # f32: the CUDA cores
     if oracle_launches != want:
         raise AssertionError(f"oracle launches {oracle_launches}, expected {want}")
     log(f"serve: oracle ({ORACLE_LAYERS} layers, full width, f32) prefill + "
@@ -964,7 +1028,8 @@ def mamba_phase(torch, np, dev):
 
     def expect(forwards, scans):
         return {"rmsnorm": (2 * cfg.n_layers + 1) * forwards, "rmsnorm/residual": 0,
-                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ssd_scan": scans}
+                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ssd_scan": scans,
+                **dict.fromkeys(FLASH_VARIANTS, 0)}
 
     generate(prompt, 2)                           # warm-up (cuBLAS, allocator)
     _, prefill_s = generate(prompt, 1)            # prefill and one argmax
@@ -1074,11 +1139,21 @@ def predicted_train_launches(cfg, steps, n_micro) -> dict:
     once in its checkpoint region's recompute, each backward kernel once;
     RMSNorm twice per layer and once at the final norm in the forward, and
     again twice per layer in the recompute (the final norm lies outside the
-    regions). The backward of RMSNorm is PyTorch ops: no launch."""
+    regions). The backward of RMSNorm is PyTorch ops: no launch. Every
+    flash_fwd and flash_bwd_dkv launch takes the variant the config's dtype
+    and head dim call for (bf16 at 80: the tensor cores)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
     n, layers = steps * n_micro, cfg.n_layers
-    return {"rmsnorm": n * (2 * layers + 1 + 2 * layers), "rmsnorm/residual": 0,
-            "flash_fwd": n * 2 * layers, "flash_bwd_dq": n * layers,
-            "flash_bwd_dkv": n * layers, "ssd_scan": 0}
+    counts = {"rmsnorm": n * (2 * layers + 1 + 2 * layers), "rmsnorm/residual": 0,
+              "flash_fwd": n * 2 * layers, "flash_bwd_dq": n * layers,
+              "flash_bwd_dkv": n * layers, "ssd_scan": 0, **dict.fromkeys(FLASH_VARIANTS, 0)}
+    dtype = getattr(torch, cfg.dtype)
+    for kernel in ("flash_fwd", "flash_bwd_dkv"):
+        counts[f"{kernel}/{fa.variant(kernel, dtype, cfg.head_dim_)}"] = counts[kernel]
+    return counts
 
 
 def train_phase(torch, np, dev, root):
@@ -1137,6 +1212,11 @@ def train_phase(torch, np, dev, root):
     want = predicted_train_launches(cfg, TRAIN_STEPS, n_micro)
     if launches != want:
         raise AssertionError(f"training launches {launches}, predicted {want}")
+    if cfg.dtype == "bfloat16" and not (
+            launches["flash_fwd/mma"] == launches["flash_fwd"] > 0
+            and launches["flash_bwd_dkv/mma"] == launches["flash_bwd_dkv"] > 0):
+        raise AssertionError(f"bf16 training: flash_fwd and flash_bwd_dkv launches not all "
+                             f"on the tensor cores: {launches}")
     if len(metrics) != TRAIN_STEPS or not all(
             math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics):
         raise AssertionError(f"training metrics not finite: {metrics}")
@@ -1445,12 +1525,16 @@ def main() -> int:
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f}s")
     for name, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            # the tensor-core library's lines also name each instantiation
+            if "registers" in line or "spill" in line or "error" in line or (
+                    name == "flash_attention_mma" and "Compiling entry" in line):
                 log(f"  {name}: {line.strip()}")
     inst_rate = issue_rate(torch)
     per_row = sass_per_row(native.library_path("dataplane"), HASH_SASS)
     log(f"issue rate {inst_rate:.4e} instructions/s; SASS instructions per row "
         f"{per_row}")
+    mma_loops = mma_main_loops(native.library_path("flash_attention_mma"), MMA_SASS)
+    log(f"tensor-core flash kernels, main loop (SASS, head dim 80): {mma_loops}")
 
     # -- 3. kernels -------------------------------------------------------------
     t_phase = time.perf_counter()
@@ -1593,24 +1677,38 @@ def main() -> int:
     model_launches = {k: sum(run[k] for run in model_runs) for k in serve_launches}
     model_launches["rmsnorm_residual"] = model_launches.pop("rmsnorm/residual")
     model_launches["rmsnorm"] -= model_launches["rmsnorm_residual"]
+    # flash_fwd and flash_bwd_dkv report their tensor-core kernels (bf16,
+    # the training path's); *_cuda_core the CUDA-core kernels, at the f32
+    # case their paths take (the serving oracle's forward; dk/dv at the
+    # training shape, which no main path launches in f32).
+    row_of = {"flash_fwd": ("flash_fwd", "mma"),
+              "flash_fwd_cuda_core": ("flash_fwd", "cuda_core"),
+              "flash_bwd_dkv": ("flash_bwd_dkv", "mma"),
+              "flash_bwd_dkv_cuda_core": ("flash_bwd_dkv", "cuda_core")}
+    for name, (kernel, variant) in row_of.items():
+        model_launches[name] = model_launches.pop(f"{kernel}/{variant}")
     headline = {"filter_gt": "f32", "map_derived": "two_f32",
                 "fixed_point_encode": "f32", "probe_sorted": "16.7M_into_4.2M",
                 "hash64": "uniform", "pid_hist": "uniform_P8",
                 "rmsnorm": "2048x5120_bfloat16",
                 "rmsnorm_residual": "2048x5120_bfloat16",
                 "flash_fwd": "2x32/32x4096x4096x80_causal_bfloat16",
+                "flash_fwd_cuda_core": "4x32/8x544x544x160_causal_float32",
                 "flash_bwd_dq": "2x32/32x4096x4096x80_causal_bfloat16",
                 "flash_bwd_dkv": "2x32/32x4096x4096x80_causal_bfloat16",
+                "flash_bwd_dkv_cuda_core": "2x32/32x4096x4096x80_causal_float32",
                 "ssd_scan": f"4x{MAMBA_PROMPT}x80x64x128_L64_bfloat16"}
     kernels = []
-    for kernel, case in headline.items():
-        row = next(r for r in rows if r["kernel"] == kernel and r["case"] == case)
-        launches = (model_launches[kernel] if kernel in model_launches
-                    else main["launches"][kernel] + part_launches[kernel])
+    for name, case in headline.items():
+        kernel, variant = row_of.get(name, (name, None))
+        own = [r for r in rows if r["kernel"] == kernel and r.get("variant") == variant]
+        row = next(r for r in own if r["case"] == case)
+        launches = (model_launches[name] if name in model_launches
+                    else main["launches"][name] + part_launches[name])
         kernels.append(dict(
-            name=kernel, route="cuda", source=MODEL_SOURCES.get(kernel, SOURCE),
-            replaces=REPLACES[kernel], launches=launches,
-            max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == kernel),
+            name=name, route="cuda", source=MODEL_SOURCES.get(name, SOURCE),
+            replaces=REPLACES[name], launches=launches,
+            max_abs_err=max(r["max_abs_err"] for r in own),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))

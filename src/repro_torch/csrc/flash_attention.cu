@@ -1,10 +1,14 @@
-// Hand-written Hopper (sm_90a) flash attention for the model stack: the
-// forward and the two backward kernels.
+// Hand-written Hopper (sm_90a) flash attention for the model stack on the
+// CUDA cores: the forward and the two backward kernels.
 //
 // Replaces, in src/repro/kernels/flash_attention.py:
 //   _fwd_kernel     (:41,  pallas_call at :133) -> flash_fwd_kernel
 //   _bwd_dq_kernel  (:167, pallas_call at :289) -> flash_bwd_dq_kernel
 //   _bwd_dkv_kernel (:209, pallas_call at :303) -> flash_bwd_dkv_kernel
+// The forward and dk/dv here serve f32 inputs, and dk/dv also bf16 at head
+// widths above 128 (160, 256); bf16 forwards and bf16 dk/dv up to 128 run
+// on the tensor cores (flash_attention_mma.cu), as the wrapper's variant
+// picks, and their instantiations here are not built. dq serves both types.
 // Inputs q, do (b, hq, sq, d) and k, v (b, hkv, sk, d) in f32 or bf16, each
 // with its own batch, head and row strides (the last dimension contiguous);
 // o, dq (b, hq, sq, d) and dk, dv (b, hkv, sk, d) are written contiguous in
@@ -22,10 +26,10 @@
 // dSᵀ·Q). At the training shape (b 2, 32 heads, 4096 positions, d 80,
 // causal) that is 172, 258 and 344 GFLOP: 2.6, 3.9 and 5.1 ms at the 67
 // TFLOP/s of f32 outside the tensor cores, 0.17-0.35 ms at the tensor
-// cores' 989 TFLOP/s bf16, against 0.05-0.08 ms of bytes at 3.35 TB/s. This
-// first version computes every product itself in f32 FMAs on the CUDA
-// cores, for both input types, so the f32 rate bounds it; tensor-core tiles
-// (mma / wgmma on bf16) are later work.
+// cores' 989 TFLOP/s bf16, against 0.05-0.08 ms of bytes at 3.35 TB/s.
+// These kernels compute every product in f32 FMAs on the CUDA cores, for
+// both input types, so the f32 rate bounds them (the port keeps f32 in
+// full f32, with no TF32); bf16 dq on the tensor cores is later work.
 //
 // Design. Every kernel runs 128 threads over 64-row tiles that stream
 // through shared memory, converted to f32, so the Pallas kernels' sequential
@@ -68,6 +72,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -535,11 +541,18 @@ int dispatch(int dtype, int d, F f) {
   }
 }
 
+// The bf16 forward, and bf16 dk/dv up to DP 128, run on the tensor cores
+// (flash_attention_mma.cu): their CUDA-core instantiations are not built.
 struct FwdCall {
   const void *q, *k, *v; void* o; float* lse;
   int b, hq, hkv, sq, sk, d; Strides st; float scale; int causal; cudaStream_t stream;
   template <typename T, int DP> int run() const {
-    return launch_fwd<T, DP>(q, k, v, o, lse, b, hq, hkv, sq, sk, d, st, scale, causal, stream);
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      return launch_fwd<T, DP>(q, k, v, o, lse, b, hq, hkv, sq, sk, d, st, scale, causal,
+                               stream);
+    }
   }
 };
 
@@ -556,8 +569,12 @@ struct DkvCall {
   const void *q, *k, *v, *dout; const float *lse, *delta; void *dk, *dv;
   int b, hq, hkv, sq, sk, d; Strides st; float scale; int causal; cudaStream_t stream;
   template <typename T, int DP> int run() const {
-    return launch_dkv<T, DP>(q, k, v, dout, lse, delta, dk, dv, b, hq, hkv, sq, sk, d, st,
-                             scale, causal, stream);
+    if constexpr (std::is_same_v<T, __nv_bfloat16> && DP <= 128) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      return launch_dkv<T, DP>(q, k, v, dout, lse, delta, dk, dv, b, hq, hkv, sq, sk, d, st,
+                               scale, causal, stream);
+    }
   }
 };
 
@@ -571,8 +588,9 @@ Strides copy_strides(const long long* s, int n) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. strides = {q batch, q head, q row,
-// k batch, k head, k row, v batch, v head, v row}, in elements.
+// dtype: 0 = float32, 1 = bfloat16 (refused: sc_flash_fwd_mma runs it).
+// strides = {q batch, q head, q row, k batch, k head, k row, v batch,
+// v head, v row}, in elements.
 int sc_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                  int b, int hq, int hkv, int sq, int sk, int d,
                  const long long* strides, float scale, int causal, int dtype,
@@ -597,7 +615,8 @@ int sc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dou
 }
 
 // dk, dv (b, hkv, sk, d), each summed over its kv head's query heads.
-// Strides as for sc_flash_bwd_dq.
+// Strides as for sc_flash_bwd_dq; bf16 only above head dim 128 (below,
+// sc_flash_bwd_dkv_mma runs it).
 int sc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                      const float* lse, const float* delta, void* dk, void* dv,
                      int b, int hq, int hkv, int sq, int sk, int d,

@@ -16,14 +16,18 @@
 // version of the same function is ssd_scan_chunked in
 // src/repro_torch/kernels/ref.py.
 //
-// Bound: operations. A chunk does 2L²n (C·Bᵀ) + 2L²p (the masked product
-// with x·dt) + 2Lnp (C·Hᵀ) + 2Lnp (the state update) operations: 3,670,016
-// at L 64, p 64, n 128. At the serving prefill (4, 512, 80, 64, 128) that is
-// 9.40 GFLOP, 0.140 ms at the 67 TFLOP/s of f32 outside the tensor cores,
-// against 43 MB of bytes (0.013 ms at 3.35 TB/s); at the long prefill
-// (1, 32768, 80, 64, 128) 150.3 GFLOP, 2.24 ms, against 0.21 ms of bytes.
-// The Pallas kernel converts its inputs to f32 before every product, so the
-// f32 rate bounds it in both input types.
+// Bound: operations. The causal mask leaves L(L+1)/2 (i, j) pairs of a
+// chunk, so a chunk does L(L+1)n (C·Bᵀ) + L(L+1)p (the masked product with
+// x·dt) + 2Lnp (C·Hᵀ) + 2Lnp (the state update) operations: 2,895,872 at
+// L 64, p 64, n 128, of which C·Bᵀ is 532,480. Every product but C·Bᵀ takes
+// an f32 operand (x·dt, the decays, H) and counts at the 67 TFLOP/s of f32
+// outside the tensor cores; C·Bᵀ multiplies the inputs themselves, so for
+// bf16 inputs it counts at the tensor cores' 989 TFLOP/s (exact with f32
+// accumulation). At the serving prefill (4, 512, 80, 64, 128) that is
+// 7.41 GFLOP: 0.1106 ms in f32 and 0.0917 ms in bf16, against 43 MB of
+// bytes (0.013 ms at 3.35 TB/s); at the long prefill (1, 32768, 80, 64,
+// 128) 118.6 GFLOP, 1.4669 ms in bf16, against 0.21 ms of bytes. This is
+// chip_smoke.py's ssd_ops.
 //
 // Design. The Pallas grid's chunk axis is sequential on the TPU, with H in
 // VMEM scratch; H100 blocks run in no order, so one block of 256 threads

@@ -4,12 +4,18 @@
 
 On CPU tensors :func:`flash_attention_fwd` and :func:`flash_attention_bwd`
 run the plain versions (``ref.attention_with_lse``, ``ref.attention_bwd``);
-on CUDA tensors they launch the hand-written kernels of
-``csrc/flash_attention.cu`` (one launch each of ``flash_fwd``, and of
-``flash_bwd_dq`` and ``flash_bwd_dkv``), or raise. The kernels take q, k, v
-and do with any batch, head and row strides as long as each row is
-contiguous, so the model's transposed views, and the transposed gradient
-autograd hands the backward, reach them without a copy.
+on CUDA tensors they launch the hand-written kernels (one launch each of
+``flash_fwd``, and of ``flash_bwd_dq`` and ``flash_bwd_dkv``), or raise.
+:func:`variant` picks the kernel of ``flash_fwd`` and ``flash_bwd_dkv``
+from the dtype and the head width alone, before the launch: bf16 up to
+``MMA_MAX_HEAD_DIM`` takes the tensor-core kernels of
+``csrc/flash_attention_mma.cu`` (variant ``mma``), everything else the
+CUDA-core kernels of ``csrc/flash_attention.cu`` (``cuda_core``), which
+also hold ``flash_bwd_dq``. The kernels take q, k, v and do with any batch,
+head and row strides as long as each row is contiguous, so the model's
+transposed views, and the transposed gradient autograd hands the backward,
+reach them without a copy (the ``mma`` kernels copy rows 16 bytes at a
+time where :func:`cp_async_aligned` allows, element by element otherwise).
 :class:`FlashAttention` is the ``torch.autograd.Function`` around the pair:
 its forward saves ``q, k, v, o, lse``; its backward computes
 ``δ = rowsum(do ⊙ o)`` in PyTorch, as the reference does in jnp outside its
@@ -29,6 +35,39 @@ from . import cuda, ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
+# The widest head each tensor-core kernel holds: the forward's O
+# accumulator fits in registers up to 256; dk/dv keeps two accumulators,
+# which fit up to 128.
+MMA_MAX_HEAD_DIM = {"flash_fwd": 256, "flash_bwd_dkv": 128}
+# The C entry point of each (kernel, variant); dq has one kernel.
+_ENTRY = {("flash_fwd", "mma"): "sc_flash_fwd_mma",
+          ("flash_fwd", "cuda_core"): "sc_flash_fwd",
+          ("flash_bwd_dq", None): "sc_flash_bwd_dq",
+          ("flash_bwd_dkv", "mma"): "sc_flash_bwd_dkv_mma",
+          ("flash_bwd_dkv", "cuda_core"): "sc_flash_bwd_dkv"}
+
+
+def variant(kernel: str, dtype: torch.dtype, d: int) -> str:
+    """The kernel a launch of ``kernel`` (``flash_fwd`` or ``flash_bwd_dkv``)
+    takes for inputs of ``dtype`` and head width ``d``: ``"mma"`` (bf16
+    tensor cores) for bf16 up to ``MMA_MAX_HEAD_DIM[kernel]``, else
+    ``"cuda_core"`` (f32 FMAs)."""
+    if dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM[kernel]:
+        return "mma"
+    return "cuda_core"
+
+
+def cp_async_aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every row of each (b, h, s, d) tensor starts on 16 bytes: the
+    base address and the batch, head and row strides (those of dimensions
+    longer than 1) are multiples of 16 bytes. Only then may the ``mma``
+    kernels copy rows with 16-byte ``cp.async``."""
+    for t in tensors:
+        size = t.element_size()
+        if t.data_ptr() % 16 or any(n > 1 and stride * size % 16
+                                    for n, stride in zip(t.shape[:3], t.stride()[:3])):
+            return False
+    return True
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -71,12 +110,22 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    native.launch("flash_fwd", "sc_flash_fwd", q.device,
+    kind = variant("flash_fwd", q.dtype, d)
+    native.launch("flash_fwd", _ENTRY["flash_fwd", kind], q.device,
                   ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse),
                   *(ctypes.c_int(n) for n in (b, hq, hkv, sq, sk, d)),
                   ctypes.cast(strides, ctypes.c_void_p), ctypes.c_float(scale),
-                  ctypes.c_int(int(causal)), ctypes.c_int(cuda.DTYPE_CODES[q.dtype]))
+                  ctypes.c_int(int(causal)), _last_arg(kind, q, k, v),
+                  variant=kind)
     return o, lse
+
+
+def _last_arg(kind: str | None, *inputs: torch.Tensor) -> ctypes.c_int:
+    """The entry point's last argument before the stream: the ``mma``
+    kernels' alignment flag, the CUDA-core kernels' dtype code."""
+    if kind == "mma":
+        return ctypes.c_int(int(cp_async_aligned(*inputs)))
+    return ctypes.c_int(cuda.DTYPE_CODES[inputs[0].dtype])
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,38 +143,40 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _flash_cuda(q, k, v, causal, scale)
 
 
-def _launch_bwd(kernel: str, fn: str, q, k, v, do, lse, delta, causal: bool,
+def _launch_bwd(kernel: str, kind: str | None, q, k, v, do, lse, delta, causal: bool,
                 scale: float, *outputs: torch.Tensor) -> None:
-    """One launch of a backward kernel writing ``outputs`` (``lse`` and
-    ``delta`` contiguous f32; the rest checked by the caller)."""
+    """One launch of a backward kernel (its variant ``kind``; dq has none)
+    writing ``outputs`` (``lse`` and ``delta`` contiguous f32; the rest
+    checked by the caller)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     strides = _strides(q, k, v, do)
-    native.launch(kernel, fn, q.device,
+    native.launch(kernel, _ENTRY[kernel, kind], q.device,
                   ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
                   *(ptr(t) for t in outputs),
                   *(ctypes.c_int(n) for n in (b, hq, hkv, sq, sk, d)),
                   ctypes.cast(strides, ctypes.c_void_p), ctypes.c_float(scale),
-                  ctypes.c_int(int(causal)), ctypes.c_int(cuda.DTYPE_CODES[q.dtype]))
+                  ctypes.c_int(int(causal)), _last_arg(kind, q, k, v, do),
+                  variant=kind)
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal: bool, scale: float) -> torch.Tensor:
     """dq from one ``flash_bwd_dq`` launch (none when q is empty)."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel():
-        _launch_bwd("flash_bwd_dq", "sc_flash_bwd_dq", q, k, v, do, lse, delta, causal,
-                    scale, dq)
+        _launch_bwd("flash_bwd_dq", None, q, k, v, do, lse, delta, causal, scale, dq)
     return dq
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """dk, dv from one ``flash_bwd_dkv`` launch (none when k is empty)."""
+    """dk, dv from one ``flash_bwd_dkv`` launch of the kernel
+    :func:`variant` picks (none when k is empty)."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     if dk.numel():
-        _launch_bwd("flash_bwd_dkv", "sc_flash_bwd_dkv", q, k, v, do, lse, delta, causal,
-                    scale, dk, dv)
+        kind = variant("flash_bwd_dkv", q.dtype, q.shape[-1])
+        _launch_bwd("flash_bwd_dkv", kind, q, k, v, do, lse, delta, causal, scale, dk, dv)
     return dk, dv
 
 

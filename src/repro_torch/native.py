@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
-SOURCES = ("dataplane", "rmsnorm", "flash_attention", "ssd_scan")
+SOURCES = ("dataplane", "rmsnorm", "flash_attention", "flash_attention_mma", "ssd_scan")
 
 # No --use_fast_math: the data-plane kernels hold a bitwise contract with
 # the numpy reference, and every rounding step is spelled out in the source;

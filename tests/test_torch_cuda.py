@@ -8,8 +8,9 @@ CPU. The data-plane kernels are compared bitwise; RMSNorm, the flash forward
 and the SSD scan within the JAX kernel tests' tolerances (1e-5 / 2e-2,
 2e-5 / 3e-2 and 2e-4 / 5e-2 in f32 / bf16), the flash backward within 2e-4
 in f32 (the JAX gradient test's) and 3e-2 in bf16 (one bf16 rounding of
-each gradient, as the forward's). Needs a card; every test skips without
-one:
+each gradient, as the forward's); each bf16 flash case also checks which
+kernel it took (the tensor cores or the CUDA cores), and the forward must
+repeat bitwise. Needs a card; every test skips without one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -260,8 +261,30 @@ FLASH_CASES = [  # b, hq, hkv, sq, sk, d, causal
     (2, 8, 2, 65, 65, 16, True),        # reduced models' head dim
     (1, 16, 16, 130, 130, 256, True),   # gemma-7b's head dim
     (1, 4, 1, 1, 257, 128, False),      # one query (decode shape)
-    (1, 6, 3, 33, 47, 100, False),      # a head dim between the padded widths
+    (1, 6, 3, 33, 47, 100, False),      # a head dim between the padded widths; rows
+                                        # off 16 bytes (element loads in bf16)
+    # the tensor-core kernels' tile boundaries (64 rows) at training's head dim
+    (1, 8, 2, 63, 63, 80, True),
+    (1, 8, 2, 64, 64, 80, True),
+    (1, 8, 2, 65, 65, 80, True),
+    (1, 8, 2, 129, 129, 80, True),
+    (1, 8, 2, 191, 191, 80, True),
+    (1, 8, 2, 200, 70, 80, True),       # causal, sq > sk, at d 80
+    (1, 8, 2, 150, 150, 64, True),      # the other widths dk/dv's mma kernel holds
+    (1, 8, 2, 150, 150, 96, True),
+    (1, 8, 2, 150, 150, 128, True),
 ]
+# The kernel each bf16 launch of flash_fwd and flash_bwd_dkv must take (f32
+# always keeps the CUDA cores): the tensor cores up to these head widths.
+MMA_WIDTH = {"flash_fwd": 256, "flash_bwd_dkv": 128}
+
+
+def expect_variant(kernel, dtype, d):
+    """Raise unless the one launch of ``kernel`` was counted under the
+    variant its dtype and head width call for."""
+    want = "mma" if dtype == torch.bfloat16 and d <= MMA_WIDTH[kernel] else "cuda_core"
+    got = {name: n for name, n in ops.variant_launches.items() if name.startswith(kernel)}
+    assert got == {f"{kernel}/{name}": int(name == want) for name in ("mma", "cuda_core")}, got
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -273,8 +296,29 @@ def test_flash_fwd_kernel_matches_cpu(dev, b, hq, hkv, sq, sk, d, causal, dtype)
     ops.reset_launches()
     got = flash_attention_fwd(q.to(dev), k.to(dev), v.to(dev), causal=causal)
     assert ops.launches["flash_fwd"] == 1
+    expect_variant("flash_fwd", dtype, d)
     close(flash_attention_fwd(q, k, v, causal=causal), got, ATTN_TOL[dtype])
     assert torch.isfinite(got[1]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_repeats_bitwise(dev, dtype):
+    """The forward is deterministic: 20 runs at the serving oracle's shape
+    (where one f32 run once differed from the CPU) give the same bits, and
+    lie within ATTN_TOL of the CPU. Names the first run that differs."""
+    b, hq, hkv, sq, sk, d, causal = FLASH_CASES[0]
+    q = randn((b, hq, sq, d), dtype, 1)
+    k = randn((b, hkv, sk, d), dtype, 2)
+    v = randn((b, hkv, sk, d), dtype, 3)
+    args = [t.to(dev) for t in (q, k, v)]
+    first = flash_attention_fwd(*args, causal=causal)
+    close(flash_attention_fwd(q, k, v, causal=causal), first, ATTN_TOL[dtype])
+    differs = []
+    for run in range(1, 20):
+        o, lse = flash_attention_fwd(*args, causal=causal)
+        if not (torch.equal(o, first[0]) and torch.equal(lse, first[1])):
+            differs.append(run)
+    assert not differs, f"runs {differs} differ from run 0 (first: {differs[:1]})"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -290,6 +334,7 @@ def test_flash_bwd_kernels_match_cpu(dev, b, hq, hkv, sq, sk, d, causal, dtype):
     ops.reset_launches()
     got = flash_attention_bwd(*(t.to(dev) for t in (q, k, v, o, lse, do)), causal=causal)
     assert ops.launches["flash_bwd_dq"] == 1 and ops.launches["flash_bwd_dkv"] == 1
+    expect_variant("flash_bwd_dkv", dtype, d)
     close(flash_attention_bwd(q, k, v, o, lse, do, causal=causal), got, BWD_TOL[dtype],
           f"{(b, hq, hkv, sq, sk, d, causal)} {dtype}")
 
