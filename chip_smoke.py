@@ -10,20 +10,21 @@ Phases, in order; any failure raises and exits non-zero:
 2. build   — ``nvcc`` for every CUDA source of the port, all in parallel,
              logging ``ptxas -v`` (registers, spills; each instantiation of
              the tensor-core flash kernels by name); the SASS of the
-             tensor-core forward and dk/dv kernels must hold bf16 HMMA in
-             their main loops;
+             tensor-core forward, dq and dk/dv kernels must hold bf16 HMMA
+             in their main loops;
 3. kernels — each hand-written kernel against its plain PyTorch version on
              the card: the data-plane kernels bitwise at the main path's
              shapes (16,777,216 rows; a 4,194,304-key join index; P = 8
              partitions, and P = 4096 and 100,003 across the shared-memory
              histogram limit, on uniform and Zipf(1.3) keys), with edge
-             cases; RMSNorm (with and without residual) and the
+             cases; RMSNorm (with and without residual, and the scalar
+             kernel on rows off 16 bytes) and the
              flash-attention forward within the JAX kernel tests'
              tolerances at the serving path's shapes (rows of 5120;
              b 4, 32 query over 8 kv heads, 544 positions, head dim 160),
-             f32 and bf16, with ragged and sq != sk cases (bf16 forward and
-             dk/dv up to head dim 256 / 128 on the tensor cores, the rest
-             on the CUDA cores); the two
+             f32 and bf16, with ragged and sq != sk cases (bf16 forward, dq
+             and dk/dv up to head dim 256 / 256 / 128 on the tensor cores,
+             the rest on the CUDA cores); the two
              flash-attention backward kernels (dq, dk/dv) within 2e-4 / 3e-2
              at the training path's shape (b 2, 32 over 32 heads, 4096
              positions, head dim 80, causal; the forward there too), the
@@ -33,7 +34,9 @@ Phases, in order; any failure raises and exits non-zero:
              state 128; f32 and bf16), the long prefill (1 x 32768, bf16),
              a reduced s = chunk = 20 case, the impulse case and one case
              against the exact recurrence; kernel, plain and library-call
-             times from CUDA events, and the forward+backward pair against
+             times from CUDA events, the kernel's and the library call's
+             device time alone (``device_ms``: CUPTI under
+             ``torch.profiler``), and the forward+backward pair against
              SDPA's;
 4. main    — one S/C refresh round: ``generate_workload(12, seed=4)``
              realized at 512 MiB per root on the card, calibrated, solved
@@ -81,14 +84,14 @@ Phases, in order; any failure raises and exits non-zero:
              ``block``): 2 steps of 4 rows of 4096 tokens in 2 microbatches;
              finite losses and grad norms, the kernels' launches equal to
              the count the code predicts, step seconds, tokens/s, peak
-             device memory, the final write-behind save, every flash_fwd and
-             flash_bwd_dkv launch on the tensor cores; one more step
+             device memory, the final write-behind save, every flash
+             launch on the tensor cores; one more step
              under ``torch.profiler``. Then reduced stablelm-3b with GQA in
              f32, card against CPU (two train steps agree; the CPU launches
              no kernel), and a bitwise checkpoint save/restore round trip;
-10. a JSON line listing every kernel with its launches over every path,
-   its times, its bound and its worst error over its cases; then the JSON
-   result line.
+10. a JSON line listing every kernel and variant with its launches over
+   every path, its times (event windows and device alone), its bound and
+   its worst error over its cases; then the JSON result line.
 
 Exits with 2, printing no result, when CUDA is unavailable or the port's
 sources are not beside this script.
@@ -133,6 +136,7 @@ HASH_SASS = {"hash64": "hash64_kernel", "pid_hist": "pid_hist_kernelILb1"}
 # SASS functions of the tensor-core flash kernels at the training path's
 # head dim (80, 16-byte copies), whose main loop must run on bf16 HMMA.
 MMA_SASS = {"flash_fwd": "flash_fwd_mma_kernelILi80ELb1E",
+            "flash_bwd_dq": "flash_bwd_dq_mma_kernelILi80ELb1E",
             "flash_bwd_dkv": "flash_bwd_dkv_mma_kernelILi80ELb1E"}
 
 # Which Pallas kernel each port kernel replaces (JAX package, file:line).
@@ -147,28 +151,31 @@ REPLACES = {
 REPLACES.update({
     "rmsnorm": "src/repro/kernels/rmsnorm.py:17",
     "rmsnorm_residual": "src/repro/kernels/rmsnorm.py:25",
+    "rmsnorm_scalar": "src/repro/kernels/rmsnorm.py:17",
     "flash_fwd": "src/repro/kernels/flash_attention.py:41",
     "flash_bwd_dq": "src/repro/kernels/flash_attention.py:167",
     "flash_bwd_dkv": "src/repro/kernels/flash_attention.py:209",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:28",
 })
-REPLACES["flash_fwd_cuda_core"] = REPLACES["flash_fwd"]
-REPLACES["flash_bwd_dkv_cuda_core"] = REPLACES["flash_bwd_dkv"]
+REPLACES.update({f"{k}_cuda_core": REPLACES[k]
+                 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
 SOURCE = "src/repro_torch/csrc/dataplane.cu"
-# flash_fwd and flash_bwd_dkv are the bf16 tensor-core kernels;
-# *_cuda_core the CUDA-core kernels that f32 (and dk/dv above head dim 128)
-# take.
+# flash_fwd, flash_bwd_dq and flash_bwd_dkv are the bf16 tensor-core
+# kernels; *_cuda_core the CUDA-core kernels that f32 (and dk/dv above head
+# dim 128) take.
 MODEL_SOURCES = {"rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
                  "rmsnorm_residual": "src/repro_torch/csrc/rmsnorm.cu",
+                 "rmsnorm_scalar": "src/repro_torch/csrc/rmsnorm.cu",
                  "flash_fwd": "src/repro_torch/csrc/flash_attention_mma.cu",
                  "flash_fwd_cuda_core": "src/repro_torch/csrc/flash_attention.cu",
-                 "flash_bwd_dq": "src/repro_torch/csrc/flash_attention.cu",
+                 "flash_bwd_dq": "src/repro_torch/csrc/flash_attention_mma.cu",
+                 "flash_bwd_dq_cuda_core": "src/repro_torch/csrc/flash_attention.cu",
                  "flash_bwd_dkv": "src/repro_torch/csrc/flash_attention_mma.cu",
                  "flash_bwd_dkv_cuda_core": "src/repro_torch/csrc/flash_attention.cu",
                  "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
 # The launch counters of the flash kernels' two variants (kernels.cuda).
-FLASH_VARIANTS = ("flash_fwd/mma", "flash_fwd/cuda_core", "flash_bwd_dkv/mma",
-                  "flash_bwd_dkv/cuda_core")
+FLASH_VARIANTS = ("flash_fwd/mma", "flash_fwd/cuda_core", "flash_bwd_dq/mma",
+                  "flash_bwd_dq/cuda_core", "flash_bwd_dkv/mma", "flash_bwd_dkv/cuda_core")
 # The serving path: stablelm-12b at full width, 4 requests of 512-token
 # prompts, 32 new tokens each; the oracle cuts depth to 2 layers (f32).
 SERVE_ARCH = "stablelm-12b"
@@ -355,6 +362,25 @@ def time_ms(torch, fn, samples: int = 21, batch: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, samples: int = 21, batch: int = 10) -> float:
+    """Device time per call with the host's launch path out of the way: the
+    CUPTI time of everything that :func:`time_ms`' ``samples`` x ``batch``
+    calls run on the card (kernels, copies, memsets), read under
+    ``torch.profiler`` (device activity only), over the calls. Beside
+    ``time_ms``, which a caller feels, it says whether the device or the
+    host sets the pace."""
+    fn()
+    torch.cuda.synchronize()
+    calls = samples * batch
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    _, by_name, _ = device_kernel_times(torch, run)
+    return sum(us for us, _ in by_name.values()) / calls / 1e3
+
+
 def max_abs_err(torch, got, want) -> float:
     """Largest |kernel − plain| over the outputs (NaN pairs count as 0)."""
     err = 0.0
@@ -514,18 +540,20 @@ def kernel_phase(torch, np, dp, dev, bw, inst_rate, per_row):
         ops_ms = ops / rate * 1e3
         row = dict(
             kernel=kernel, case=case, max_abs_err=err,
-            ms=time_ms(torch, kfn), plain_ms=time_ms(torch, pfn),
+            ms=time_ms(torch, kfn), device_ms=device_ms(torch, kfn),
+            plain_ms=time_ms(torch, pfn),
             library_ms=None if lfn is None else time_ms(torch, lfn),
+            library_device_ms=None if lfn is None else device_ms(torch, lfn),
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             bytes=nbytes,
         )
         rows.append(row)
         log(f"kernel {kernel:<19} {case:<16} bitwise ok  max_abs_err={err} "
-            f"ms={row['ms']} plain_ms={row['plain_ms']} "
-            f"library_ms={row['library_ms']} bound_ms={row['bound_ms']} "
-            f"({row['bound_by']}, {nbytes} B, bytes {bytes_ms} ms, "
-            f"ops {ops_ms} ms)")
+            f"ms={row['ms']} device_ms={row['device_ms']} plain_ms={row['plain_ms']} "
+            f"library_ms={row['library_ms']} library_device_ms={row['library_device_ms']} "
+            f"bound_ms={row['bound_ms']} ({row['bound_by']}, {nbytes} B, bytes "
+            f"{bytes_ms} ms, ops {ops_ms} ms)")
         if kernel == "pid_hist":
             check_grouping(torch, dp, inputs[0], got[0], case)
     return rows
@@ -573,7 +601,7 @@ def model_kernel_cases(torch, dev):
 
     def case(kernel, name, dn, inputs, kfn, pfn, lfn, ops, lib_minus=None, samples=21):
         variant = None
-        if kernel in ("flash_fwd", "flash_bwd_dkv"):   # which of its two kernels runs
+        if kernel.startswith("flash"):   # which of its two kernels runs
             variant = fa.variant(kernel, inputs[0].dtype, inputs[0].shape[-1])
         return dict(kernel=kernel, case=name, dn=dn, inputs=inputs, kfn=kfn, pfn=pfn,
                     lfn=lfn, lib_minus=lib_minus, ops=ops, samples=samples, variant=variant)
@@ -594,6 +622,13 @@ def model_kernel_cases(torch, dev):
                               lambda x=x, r=r, w=w: (rn.rmsnorm(x, w, residual=r),),
                               lambda x=x, r=r, w=w: (ref.rmsnorm(x, w, residual=r),),
                               None, 5 * n))
+            # rows off 16 bytes: the scalar kernel
+            xs = torch.empty(n + 1, dtype=dtype, device=dev)[1:].view(rows, 5120)
+            xs.copy_(x)
+            cases.append(case("rmsnorm_scalar", f"{rows}x5120_{dn}_unaligned", dn, (xs, w),
+                              lambda x=xs, w=w: (rn.rmsnorm(x, w),),
+                              lambda x=xs, w=w: (ref.rmsnorm(x, w),),
+                              lambda x=xs, w=w: (F.rms_norm(x, (5120,), w, 1e-6),), 4 * n))
         shapes = [  # (b, hq, hkv, sq, sk, d, causal)
             TRAIN_SHAPE,                                 # the training path
             (SERVE_BATCH, 32, 8, SERVE_PROMPT + SERVE_NEW, SERVE_PROMPT + SERVE_NEW,
@@ -749,26 +784,31 @@ def model_kernel_phase(torch, dev, bw):
         n_ops = sum(count for count, _ in ops_at)
         ops_ms = sum(count / peak for count, peak in ops_at) * 1e3
         timing = dict(samples=c["samples"], batch=10 if c["samples"] > 5 else 2)
-        library_ms = None
+        library_ms = library_device_ms = None
         if c["lfn"] is not None:
             key = (id(c["lfn"]), case)
             if key not in lib_times:
-                lib_times[key] = time_ms(torch, c["lfn"], **timing) - (
-                    0.0 if c["lib_minus"] is None else time_ms(torch, c["lib_minus"], **timing))
-            library_ms = lib_times[key]
+                minus = c["lib_minus"]
+                lib_times[key] = tuple(
+                    clock(torch, c["lfn"], **timing)
+                    - (0.0 if minus is None else clock(torch, minus, **timing))
+                    for clock in (time_ms, device_ms))
+            library_ms, library_device_ms = lib_times[key]
         row = dict(
             kernel=kernel, case=case, max_abs_err=err,
-            ms=time_ms(torch, c["kfn"], **timing), plain_ms=time_ms(torch, c["pfn"], **timing),
-            library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+            ms=time_ms(torch, c["kfn"], **timing), device_ms=device_ms(torch, c["kfn"], **timing),
+            plain_ms=time_ms(torch, c["pfn"], **timing),
+            library_ms=library_ms, library_device_ms=library_device_ms,
+            bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
             variant=c.get("variant"),
         )
         rows.append(row)
         log(f"kernel {kernel:<17} {case:<38} {c.get('variant') or '':<9} within {tol}  "
             f"max_abs_err={err} rel_err={rel} (limit {REL_TOL[dn]}, RMS |plain| {rms}) "
-            f"ms={row['ms']} plain_ms={row['plain_ms']} "
-            f"library_ms={row['library_ms']} bound_ms={row['bound_ms']} "
-            f"({row['bound_by']}, {nbytes} B, bytes {bytes_ms} ms, "
+            f"ms={row['ms']} device_ms={row['device_ms']} plain_ms={row['plain_ms']} "
+            f"library_ms={row['library_ms']} library_device_ms={row['library_device_ms']} "
+            f"bound_ms={row['bound_ms']} ({row['bound_by']}, {nbytes} B, bytes {bytes_ms} ms, "
             f"{n_ops} ops {ops_ms} ms)")
         del got, want
     bwd_wrapper(torch, dev)
@@ -888,7 +928,7 @@ def serve_phase(torch, np, dev):
             ((out >= 0) & (out < cfg.vocab_size)).all()):
         raise AssertionError(f"generated tokens {tuple(out.shape)} out of range")
     forwards = 1 + (SERVE_NEW - 1)
-    want = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards, "rmsnorm/residual": 0,
+    want = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards, "rmsnorm/residual": 0, "rmsnorm/scalar": 0,
             "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ssd_scan": 0,
             **dict.fromkeys(FLASH_VARIANTS, 0)}
     if serve_launches != want:
@@ -924,7 +964,7 @@ def serve_phase(torch, np, dev):
     worst, top = oracle_check(torch, models, ocfg, omodel, tok, SERVE_PROMPT, "serving")
     oracle_launches = {**ops.launches, **ops.variant_launches}
     want = {"rmsnorm": (2 * ORACLE_LAYERS + 1) * (2 + SERVE_NEW),
-            "rmsnorm/residual": 0, "flash_fwd": ORACLE_LAYERS, "flash_bwd_dq": 0,
+            "rmsnorm/residual": 0, "rmsnorm/scalar": 0, "flash_fwd": ORACLE_LAYERS, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "ssd_scan": 0, **dict.fromkeys(FLASH_VARIANTS, 0),
             "flash_fwd/cuda_core": ORACLE_LAYERS}   # f32: the CUDA cores
     if oracle_launches != want:
@@ -1027,7 +1067,7 @@ def mamba_phase(torch, np, dev):
         return out, time.perf_counter() - t
 
     def expect(forwards, scans):
-        return {"rmsnorm": (2 * cfg.n_layers + 1) * forwards, "rmsnorm/residual": 0,
+        return {"rmsnorm": (2 * cfg.n_layers + 1) * forwards, "rmsnorm/residual": 0, "rmsnorm/scalar": 0,
                 "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ssd_scan": scans,
                 **dict.fromkeys(FLASH_VARIANTS, 0)}
 
@@ -1140,18 +1180,18 @@ def predicted_train_launches(cfg, steps, n_micro) -> dict:
     RMSNorm twice per layer and once at the final norm in the forward, and
     again twice per layer in the recompute (the final norm lies outside the
     regions). The backward of RMSNorm is PyTorch ops: no launch. Every
-    flash_fwd and flash_bwd_dkv launch takes the variant the config's dtype
-    and head dim call for (bf16 at 80: the tensor cores)."""
+    flash launch takes the variant the config's dtype and head dim call for
+    (bf16 at 80: the tensor cores)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     n, layers = steps * n_micro, cfg.n_layers
-    counts = {"rmsnorm": n * (2 * layers + 1 + 2 * layers), "rmsnorm/residual": 0,
+    counts = {"rmsnorm": n * (2 * layers + 1 + 2 * layers), "rmsnorm/residual": 0, "rmsnorm/scalar": 0,
               "flash_fwd": n * 2 * layers, "flash_bwd_dq": n * layers,
               "flash_bwd_dkv": n * layers, "ssd_scan": 0, **dict.fromkeys(FLASH_VARIANTS, 0)}
     dtype = getattr(torch, cfg.dtype)
-    for kernel in ("flash_fwd", "flash_bwd_dkv"):
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         counts[f"{kernel}/{fa.variant(kernel, dtype, cfg.head_dim_)}"] = counts[kernel]
     return counts
 
@@ -1212,11 +1252,11 @@ def train_phase(torch, np, dev, root):
     want = predicted_train_launches(cfg, TRAIN_STEPS, n_micro)
     if launches != want:
         raise AssertionError(f"training launches {launches}, predicted {want}")
-    if cfg.dtype == "bfloat16" and not (
-            launches["flash_fwd/mma"] == launches["flash_fwd"] > 0
-            and launches["flash_bwd_dkv/mma"] == launches["flash_bwd_dkv"] > 0):
-        raise AssertionError(f"bf16 training: flash_fwd and flash_bwd_dkv launches not all "
-                             f"on the tensor cores: {launches}")
+    if cfg.dtype == "bfloat16" and not all(
+            launches[f"{k}/mma"] == launches[k] > 0
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+        raise AssertionError(f"bf16 training: flash launches not all on the tensor cores: "
+                             f"{launches}")
     if len(metrics) != TRAIN_STEPS or not all(
             math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics):
         raise AssertionError(f"training metrics not finite: {metrics}")
@@ -1671,20 +1711,22 @@ def main() -> int:
     # Mamba-2 serving prefill) and the worst error over all its cases. The
     # model kernels' launches are those of every model path (stablelm
     # serving and its oracle, Mamba-2 serving, long prefill and oracle,
-    # training). The residual RMSNorm's launches are its variant's share of
-    # the RMSNorm count; the plain RMSNorm's are the rest.
+    # training). The residual and the scalar RMSNorm's launches are their
+    # variants' shares of the RMSNorm count (no model path passes a
+    # residual or a row off 16 bytes); the vector RMSNorm's are the rest.
     model_runs = (serve_launches, oracle_launches, *mamba_launches, train_launches)
     model_launches = {k: sum(run[k] for run in model_runs) for k in serve_launches}
     model_launches["rmsnorm_residual"] = model_launches.pop("rmsnorm/residual")
-    model_launches["rmsnorm"] -= model_launches["rmsnorm_residual"]
-    # flash_fwd and flash_bwd_dkv report their tensor-core kernels (bf16,
-    # the training path's); *_cuda_core the CUDA-core kernels, at the f32
-    # case their paths take (the serving oracle's forward; dk/dv at the
+    model_launches["rmsnorm_scalar"] = model_launches.pop("rmsnorm/scalar")
+    model_launches["rmsnorm"] -= (model_launches["rmsnorm_residual"]
+                                  + model_launches["rmsnorm_scalar"])
+    # The flash kernels report their tensor-core kernels (bf16, the
+    # training path's); *_cuda_core the CUDA-core kernels, at the f32 case
+    # their paths take (the serving oracle's forward; dq and dk/dv at the
     # training shape, which no main path launches in f32).
-    row_of = {"flash_fwd": ("flash_fwd", "mma"),
-              "flash_fwd_cuda_core": ("flash_fwd", "cuda_core"),
-              "flash_bwd_dkv": ("flash_bwd_dkv", "mma"),
-              "flash_bwd_dkv_cuda_core": ("flash_bwd_dkv", "cuda_core")}
+    row_of = {f"{k}{suffix}": (k, variant)
+              for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+              for suffix, variant in (("", "mma"), ("_cuda_core", "cuda_core"))}
     for name, (kernel, variant) in row_of.items():
         model_launches[name] = model_launches.pop(f"{kernel}/{variant}")
     headline = {"filter_gt": "f32", "map_derived": "two_f32",
@@ -1692,9 +1734,11 @@ def main() -> int:
                 "hash64": "uniform", "pid_hist": "uniform_P8",
                 "rmsnorm": "2048x5120_bfloat16",
                 "rmsnorm_residual": "2048x5120_bfloat16",
+                "rmsnorm_scalar": "2048x5120_bfloat16_unaligned",
                 "flash_fwd": "2x32/32x4096x4096x80_causal_bfloat16",
                 "flash_fwd_cuda_core": "4x32/8x544x544x160_causal_float32",
                 "flash_bwd_dq": "2x32/32x4096x4096x80_causal_bfloat16",
+                "flash_bwd_dq_cuda_core": "2x32/32x4096x4096x80_causal_float32",
                 "flash_bwd_dkv": "2x32/32x4096x4096x80_causal_bfloat16",
                 "flash_bwd_dkv_cuda_core": "2x32/32x4096x4096x80_causal_float32",
                 "ssd_scan": f"4x{MAMBA_PROMPT}x80x64x128_L64_bfloat16"}
@@ -1711,6 +1755,7 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in own),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
+            device_ms=row["device_ms"], library_device_ms=row["library_device_ms"],
         ))
     log(f"launches: main path {main['launches']}; partitioned path {part_launches}; "
         f"serving {serve_launches}; serving oracle {oracle_launches}; Mamba-2 serving, "

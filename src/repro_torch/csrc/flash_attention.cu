@@ -5,10 +5,10 @@
 //   _fwd_kernel     (:41,  pallas_call at :133) -> flash_fwd_kernel
 //   _bwd_dq_kernel  (:167, pallas_call at :289) -> flash_bwd_dq_kernel
 //   _bwd_dkv_kernel (:209, pallas_call at :303) -> flash_bwd_dkv_kernel
-// The forward and dk/dv here serve f32 inputs, and dk/dv also bf16 at head
-// widths above 128 (160, 256); bf16 forwards and bf16 dk/dv up to 128 run
-// on the tensor cores (flash_attention_mma.cu), as the wrapper's variant
-// picks, and their instantiations here are not built. dq serves both types.
+// The forward and dq here serve f32 inputs, and dk/dv f32 and also bf16 at
+// head widths above 128 (160, 256); bf16 forwards, bf16 dq and bf16 dk/dv up
+// to 128 run on the tensor cores (flash_attention_mma.cu), as the wrapper's
+// variant picks, and their instantiations here are not built.
 // Inputs q, do (b, hq, sq, d) and k, v (b, hkv, sk, d) in f32 or bf16, each
 // with its own batch, head and row strides (the last dimension contiguous);
 // o, dq (b, hq, sq, d) and dk, dv (b, hkv, sk, d) are written contiguous in
@@ -27,9 +27,9 @@
 // causal) that is 172, 258 and 344 GFLOP: 2.6, 3.9 and 5.1 ms at the 67
 // TFLOP/s of f32 outside the tensor cores, 0.17-0.35 ms at the tensor
 // cores' 989 TFLOP/s bf16, against 0.05-0.08 ms of bytes at 3.35 TB/s.
-// These kernels compute every product in f32 FMAs on the CUDA cores, for
-// both input types, so the f32 rate bounds them (the port keeps f32 in
-// full f32, with no TF32); bf16 dq on the tensor cores is later work.
+// These kernels compute every product in f32 FMAs on the CUDA cores, so
+// the f32 rate bounds them (the port keeps f32 in full f32, with no TF32);
+// bf16 runs on the tensor cores but for dk/dv above head dim 128.
 //
 // Design. Every kernel runs 128 threads over 64-row tiles that stream
 // through shared memory, converted to f32, so the Pallas kernels' sequential
@@ -541,8 +541,9 @@ int dispatch(int dtype, int d, F f) {
   }
 }
 
-// The bf16 forward, and bf16 dk/dv up to DP 128, run on the tensor cores
-// (flash_attention_mma.cu): their CUDA-core instantiations are not built.
+// The bf16 forward and dq, and bf16 dk/dv up to DP 128, run on the tensor
+// cores (flash_attention_mma.cu): their CUDA-core instantiations are not
+// built.
 struct FwdCall {
   const void *q, *k, *v; void* o; float* lse;
   int b, hq, hkv, sq, sk, d; Strides st; float scale; int causal; cudaStream_t stream;
@@ -560,8 +561,12 @@ struct DqCall {
   const void *q, *k, *v, *dout; const float *lse, *delta; void* dq;
   int b, hq, hkv, sq, sk, d; Strides st; float scale; int causal; cudaStream_t stream;
   template <typename T, int DP> int run() const {
-    return launch_dq<T, DP>(q, k, v, dout, lse, delta, dq, b, hq, hkv, sq, sk, d, st, scale,
-                            causal, stream);
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      return launch_dq<T, DP>(q, k, v, dout, lse, delta, dq, b, hq, hkv, sq, sk, d, st, scale,
+                              causal, stream);
+    }
   }
 };
 
@@ -601,8 +606,9 @@ int sc_flash_fwd(const void* q, const void* k, const void* v, void* o, float* ls
                                     copy_strides(strides, 9), scale, causal, stream});
 }
 
-// dq (b, hq, sq, d) from q, k, v, do, lse and delta. strides = the
-// forward's nine, then {do batch, do head, do row}.
+// dq (b, hq, sq, d) from q, k, v, do, lse and delta; float32 only (bf16
+// refused: sc_flash_bwd_dq_mma runs it). strides = the forward's nine, then
+// {do batch, do head, do row}.
 int sc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                     const float* lse, const float* delta, void* dq,
                     int b, int hq, int hkv, int sq, int sk, int d,

@@ -1,17 +1,18 @@
 // Hand-written Hopper (sm_90a) flash attention on the bf16 tensor cores:
-// the forward and the dk/dv backward for bf16 inputs.
+// the forward and the two backward kernels (dq, dk/dv) for bf16 inputs.
 //
 // Replaces, in src/repro/kernels/flash_attention.py:
 //   _fwd_kernel     (:41,  pallas_call at :133) -> flash_fwd_mma_kernel
+//   _bwd_dq_kernel  (:167, pallas_call at :289) -> flash_bwd_dq_mma_kernel
 //   _bwd_dkv_kernel (:209, pallas_call at :303) -> flash_bwd_dkv_mma_kernel
-// for bf16 q, k, v (and do) at head widths d <= 256 (forward) and d <= 128
-// (dk/dv). f32 inputs, and bf16 dk/dv at d > 128, take the CUDA-core
+// for bf16 q, k, v (and do) at head widths d <= 256 (forward, dq) and
+// d <= 128 (dk/dv). f32 inputs, and bf16 dk/dv at d > 128, take the CUDA-core
 // kernels of flash_attention.cu; the choice is made by the wrapper
 // (kernels/flash_attention.py: variant) from the dtype and d alone. The
 // interface, the masking and the outputs are those of flash_attention.cu:
 // q, do (b, hq, sq, d) and k, v (b, hkv, sk, d) with their own batch, head
-// and row strides (rows contiguous); o (b, hq, sq, d), dk, dv (b, hkv, sk,
-// d) written contiguous in bf16; lse and delta (b, hq, sq) contiguous f32.
+// and row strides (rows contiguous); o, dq (b, hq, sq, d), dk, dv (b, hkv,
+// sk, d) written contiguous in bf16; lse and delta (b, hq, sq) contiguous f32.
 // Causal keeps col <= row from the top left also when sq != sk; a row with
 // no key gets o = 0 and lse = +inf; lse is the natural-log log-sum-exp. The
 // softmax runs in base 2, exp(x·scale) = exp2(x·scale·log2 e), with
@@ -20,17 +21,18 @@
 // deterministic. The plain versions are attention_with_lse and
 // attention_bwd in src/repro_torch/kernels/ref.py.
 //
-// Bound: with P causal (q, k) pairs the forward does 4·P·d operations and
-// dkv 8·P·d (Sᵀ, dPᵀ, Pᵀ·dO, dSᵀ·Q). At the training shape (b 2, 32 heads,
-// 4096 positions, d 80, causal) that is 171.8 and 343.7 GFLOP: 0.1738 and
-// 0.3475 ms at the tensor cores' 989 TFLOP/s bf16 (dense), against 0.05 and
-// 0.08 ms of bytes at 3.35 TB/s. mma.sync does not reach that peak on
+// Bound: with P causal (q, k) pairs the forward does 4·P·d operations, dq
+// 6·P·d (S, dP, dS·K) and dkv 8·P·d (Sᵀ, dPᵀ, Pᵀ·dO, dSᵀ·Q). At the training
+// shape (b 2, 32 heads, 4096 positions, d 80, causal) that is 171.8, 257.8
+// and 343.7 GFLOP: 0.1738, 0.2606 and 0.3475 ms at the tensor cores' 989
+// TFLOP/s bf16 (dense), against 0.05-0.08 ms of bytes at 3.35 TB/s. mma.sync does not reach that peak on
 // Hopper (wgmma does): this design is the FlashAttention-2 structure.
 //
 // Rounding: products take bf16 operands with f32 accumulation. P (forward
-// and dkv) and dSᵀ (dkv) are rounded to bf16 before their second product,
-// where the reference keeps them in f32; the softmax normaliser sums the
-// unrounded f32 p. o, dk and dv are rounded to bf16 once at the end.
+// and dkv), dSᵀ (dkv) and dS (dq) are rounded to bf16 before their second
+// product, where the reference keeps them in f32; the softmax normaliser
+// sums the unrounded f32 p. o, dq, dk and dv are rounded to bf16 once at the
+// end.
 //
 // Design. 128 threads (4 warps) a block. Tiles stream from device memory
 // through a two-stage cp.async ring in shared memory (16-byte copies,
@@ -40,9 +42,9 @@
 // cores through ldmatrix. Shared rows are DP + 8 bf16 long, DP = d rounded
 // up to a multiple of 16 (the mma depth): the row stride is then an odd
 // multiple of 16 bytes, so ldmatrix's eight row addresses fall in distinct
-// banks. d = 80 runs at 80. Widths: the forward instantiates DP in {16, 32,
-// ..., 128, 160, 256} (a d in (160, 256) runs at 256), dkv DP in {16, ...,
-// 128}.
+// banks. d = 80 runs at 80. Widths: the forward and dq instantiate DP in
+// {16, 32, ..., 128, 160, 256} (a d in (160, 256) runs at 256), dkv DP in
+// {16, ..., 128}.
 //
 // - forward: one block per (batch, query head, BM query rows), blocks
 //   ordered so that the query tiles with the most kv tiles start first
@@ -75,6 +77,20 @@
 //   which is why dkv stops at 128. K's and V's fragments are re-read from
 //   shared memory (kept in registers they cost occupancy and gained
 //   nothing at DP 80).
+// - dq: the forward's structure with a second score product and no online
+//   softmax, since lse and delta are known. One block per (batch, query
+//   head, BM query rows), the longest causal rows first; Q and dO stay in
+//   shared memory, K and V tiles of BN rows stream through the ring, and a
+//   thread keeps its rows' lse (base 2) and delta in registers. A warp owns
+//   MT m-tiles: MT = 2 up to DP 80 (BM 128), so each K fragment of dS·K
+//   feeds two products; S = Q·Kᵀ and dP = dO·Vᵀ (K and V row-major, the B
+//   operands as they lie) then go 32 kv columns at a time, for two score
+//   tiles and two dQ accumulators of DP/2 f32 to fit in registers (236 at DP
+//   80). P = exp2(S·scale·log2 e − lse·log2 e) and dS = P ⊙ (dP − delta)·scale
+//   in registers, dS packed to bf16 as the A operand of dQ += dS·K (K through
+//   ldmatrix.trans). MT = 1 above DP 80 (BM 64), with Q's and dO's fragments
+//   in registers up to DP 128; BN 64, and 32 from DP 160 so that two blocks
+//   fit on an SM. A row with no key (lse = +inf) gets p = 0 and dq = 0.
 // - Inputs whose rows do not start on 16 bytes (a base address off 16
 //   bytes, or a stride not a multiple of 8 elements: d = 100 contiguous)
 //   take an ALIGNED = false instantiation that loads tiles element by
@@ -82,10 +98,14 @@
 //
 // ptxas -v (CUDA 12.8, sm_90a; chip_smoke.py's build log): registers per
 // thread with 16-byte copies, no spills, no static shared memory; the
-// dynamic shared memory (fwd_smem_bytes, dkv_smem_bytes) is set per launch:
+// dynamic shared memory (fwd_smem_bytes, dq_smem_bytes, dkv_smem_bytes) is
+// set per launch:
 //   forward DP 16: 123, 32: 139, 48: 168, 64: 204, 80: 238 (67,584 B),
 //     96: 131, 112: 170, 128: 168 (87,040 B), 160: 164 (107,520 B),
 //     256: 238 (101,376 B);
+//   dq DP 16: 123, 32: 164, 48: 168, 64: 221, 80: 236 (90,112 B),
+//     96: 168, 112: 215, 128: 231 (104,448 B), 160: 164 (86,016 B),
+//     256: 246 (135,168 B);
 //   dkv DP 16: 95, 32: 122, 48: 128, 64: 165, 80: 166 (68,608 B),
 //     96: 171, 112: 241, 128: 248 (105,472 B).
 //
@@ -108,7 +128,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // kv rows per dkv block (16 per warp)
 constexpr int kBQ = 64;             // query rows per streamed dkv tile
-constexpr int kSub = 32;            // query columns of one dkv sub-tile in registers
+constexpr int kSub = 32;            // score columns of one dkv or dq sub-tile in registers
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -138,6 +158,25 @@ template <int DP>
 constexpr size_t dkv_smem_bytes() {  // K, V, two stages of Q and dO, of lse and delta
   return sizeof(bf16) * static_cast<size_t>(2 * kRows + 4 * kBQ) * (DP + 8) +
          sizeof(float) * 4 * kBQ;
+}
+
+// dq's tiles: MT 16-row m-tiles a warp (two up to DP 80, where two dQ
+// accumulators and a 32-column sub-tile of S and dP for each still fit in
+// registers, so each K fragment of dS·K feeds both), BN kv rows a tile (32
+// from DP 160, so that two blocks share an SM); Q's and dO's fragments stay
+// in registers where they fit.
+template <int DP>
+__host__ __device__ constexpr int dq_mt() { return DP <= 80 ? 2 : 1; }
+template <int DP>
+__host__ __device__ constexpr int dq_rows() { return 16 * dq_mt<DP>() * kWarps; }
+template <int DP>
+__host__ __device__ constexpr int dq_bn() { return DP >= 160 ? 32 : 64; }
+template <int DP>
+__host__ __device__ constexpr bool dq_frags_in_regs() { return dq_mt<DP>() == 1 && DP <= 128; }
+
+template <int DP>
+constexpr size_t dq_smem_bytes() {  // Q, dO, then two stages of K and of V
+  return sizeof(bf16) * static_cast<size_t>(2 * dq_rows<DP>() + 4 * dq_bn<DP>()) * (DP + 8);
 }
 
 // Rows [r0, r0 + ROWS) of one head (row stride rs elements), columns
@@ -538,10 +577,174 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<NO>(dv + kv_row0 * d, dva, kr0 + g, sk, d, 1.f, 1.f, t);
 }
 
+template <int DP, bool ALIGNED>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int hq, int group, int sq, int sk, int d,
+                        Strides st, float scale, int causal) {
+  constexpr int BN = dq_bn<DP>();
+  constexpr int MT = dq_mt<DP>();    // 16-row m-tiles per warp
+  constexpr int BM = dq_rows<DP>();  // query rows per block
+  constexpr int LD = DP + 8;
+  constexpr int KD = DP / 16;   // depth steps of Q·Kᵀ and dO·Vᵀ
+  constexpr int NO = DP / 8;    // 8-column tiles of dQ
+  constexpr int NS = kSub / 8;  // 8-column tiles of an S or dP sub-tile
+  constexpr bool kRegs = dq_frags_in_regs<DP>();
+  extern __shared__ uint4 smem_u4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);
+  bf16* Os = Qs + BM * LD;      // dO
+  bf16* Ks = Os + BM * LD;      // two stages of BN rows
+  bf16* Vs = Ks + 2 * BN * LD;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / hq, h = blockIdx.x - b * hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // the longest causal rows first
+  const int hk = h / group;
+  const bf16* kb = k + b * st.v[3] + hk * st.v[4];
+  const bf16* vb = v + b * st.v[6] + hk * st.v[7];
+  const long long kss = st.v[5], vss = st.v[8];
+
+  const int kend = causal ? min(sk, q0 + BM) : sk;
+  const int ntiles = (kend + BN - 1) / BN;
+  const float scale_log2 = scale * kLog2e;
+
+  load_tile<ALIGNED, BM, DP>(Qs, q + b * st.v[0] + h * st.v[1], st.v[2], q0, sq, d);
+  load_tile<ALIGNED, BM, DP>(Os, dout + b * st.v[9] + h * st.v[10], st.v[11], q0, sq, d);
+  if (ntiles > 0) {
+    load_tile<ALIGNED, BN, DP>(Ks, kb, kss, 0, sk, d);
+    load_tile<ALIGNED, BN, DP>(Vs, vb, vss, 0, sk, d);
+  }
+  cp_async_commit();
+
+  const int wrow = warp * 16 * MT;
+  const int wfirst = q0 + wrow, wlast = wfirst + 16 * MT - 1;
+  const long long head_row0 = (static_cast<long long>(b) * hq + h) * sq;
+  // rows g and g + 8 of each m-tile: lse in base 2 (+inf past sq, so p = 0) and delta
+  float lse2[MT][2], dlt[MT][2];
+  float acc[MT][NO][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wfirst + 16 * mt + g + 8 * r;
+      lse2[mt][r] = row < sq ? lse[head_row0 + row] * kLog2e : INFINITY;
+      dlt[mt][r] = row < sq ? delta[head_row0 + row] : 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+  }
+  uint32_t qf[kRegs ? KD : 1][4], of[kRegs ? KD : 1][4];
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BN, stage = it & 1;
+    cp_async_wait<0>();  // this tile's copies, the only ones in flight
+    __syncthreads();     // ... seen by every warp, and every warp is done with the other stage
+    if (it + 1 < ntiles) {  // the next tile into the other stage, behind this one's math
+      load_tile<ALIGNED, BN, DP>(Ks + (stage ^ 1) * BN * LD, kb, kss, k0 + BN, sk, d);
+      load_tile<ALIGNED, BN, DP>(Vs + (stage ^ 1) * BN * LD, vb, vss, k0 + BN, sk, d);
+      cp_async_commit();
+    }
+    if constexpr (kRegs) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          const int off = (wrow + a_row(lane)) * LD + kk * 16 + a_col(lane);
+          ldmatrix_x4(qf[kk], Qs + off);
+          ldmatrix_x4(of[kk], Os + off);
+        }
+      }
+    }
+    if (causal && k0 > wlast) continue;  // the tile lies wholly above this warp's rows
+    const bf16* Kt = Ks + stage * BN * LD;
+    const bf16* Vt = Vs + stage * BN * LD;
+#pragma unroll
+    for (int c0 = 0; c0 < BN; c0 += kSub) {
+      const int ca = k0 + c0;  // the sub-tile's first kv row
+      if (ca >= sk || (causal && ca > wlast)) continue;  // no pair survives
+      float s[MT][NS][4], dp[MT][NS][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][j][e] = dp[mt][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {  // S = Q·Kᵀ, dP = dO·Vᵀ
+        uint32_t aq[MT][4], ao[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (kRegs) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) aq[mt][r] = qf[kk][r], ao[mt][r] = of[kk][r];
+          } else {
+            const int off = (wrow + 16 * mt + a_row(lane)) * LD + kk * 16 + a_col(lane);
+            ldmatrix_x4(aq[mt], Qs + off);
+            ldmatrix_x4(ao[mt], Os + off);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NS; j += 2) {  // two 8-column tiles per ldmatrix
+          const int off = (c0 + j * 8 + b_row(lane)) * LD + kk * 16 + b_col(lane);
+          uint32_t bk[4], bv[4];
+          ldmatrix_x4(bk, Kt + off);
+          ldmatrix_x4(bv, Vt + off);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][j], aq[mt], bk[0], bk[1]);
+            mma_bf16(s[mt][j + 1], aq[mt], bk[2], bk[3]);
+            mma_bf16(dp[mt][j], ao[mt], bv[0], bv[1]);
+            mma_bf16(dp[mt][j + 1], ao[mt], bv[2], bv[3]);
+          }
+        }
+      }
+      const bool masked = ca + kSub > sk || (causal && ca + kSub - 1 > wfirst);  // ragged, diagonal
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2f(fmaf(s[mt][j][e], scale_log2, -lse2[mt][e >> 1]));  // lse = +inf: 0
+            if (masked) {
+              const int col = ca + j * 8 + 2 * t + (e & 1);
+              const int row = wfirst + 16 * mt + g + 8 * (e >> 1);
+              if (col >= sk || (causal && col > row)) p = 0.f;
+            }
+            dp[mt][j][e] = p * (dp[mt][j][e] - dlt[mt][e >> 1]) * scale;  // dS
+          }
+#pragma unroll
+      for (int kk = 0; kk < kSub / 16; ++kk) {  // dQ += dS·K, dS in bf16 from registers
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) pack_a(a[mt], dp[mt], kk);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t bk[4];
+          ldmatrix_x4_trans(bk, Kt + (c0 + kk * 16 + a_row(lane)) * LD + n * 8 + a_col(lane));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(acc[mt][n], a[mt], bk[0], bk[1]);
+            mma_bf16(acc[mt][n + 1], a[mt], bk[2], bk[3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block (Q and dO when ntiles = 0)
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    store_rows<NO>(dq + head_row0 * d, acc[mt], wfirst + 16 * mt + g, sq, d, 1.f, 1.f, t);
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
-  void *o, *dk, *dv;
+  void *o, *dq, *dk, *dv;
   float* lse_out;
   int b, hq, hkv, sq, sk, d;
   Strides st;
@@ -581,6 +784,21 @@ int launch_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DP, bool ALIGNED>
+int launch_dq(const Args& a) {
+  constexpr size_t smem = dq_smem_bytes<DP>();
+  const auto kernel = flash_bwd_dq_mma_kernel<DP, ALIGNED>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.b * a.hq, (a.sq + dq_rows<DP>() - 1) / dq_rows<DP>());
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      static_cast<bf16*>(a.dq), a.hq, a.hq / a.hkv, a.sq, a.sk, a.d, a.st, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int DP>
 int fwd_at(const Args& a, bool aligned) {
   return aligned ? launch_fwd<DP, true>(a) : launch_fwd<DP, false>(a);
@@ -589,6 +807,11 @@ int fwd_at(const Args& a, bool aligned) {
 template <int DP>
 int dkv_at(const Args& a, bool aligned) {
   return aligned ? launch_dkv<DP, true>(a) : launch_dkv<DP, false>(a);
+}
+
+template <int DP>
+int dq_at(const Args& a, bool aligned) {
+  return aligned ? launch_dq<DP, true>(a) : launch_dq<DP, false>(a);
 }
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
@@ -613,6 +836,22 @@ int run_fwd(const Args& a, bool aligned) {
     case 128: return fwd_at<128>(a, aligned);
     case 160: return fwd_at<160>(a, aligned);
     case 256: return fwd_at<256>(a, aligned);
+    default: return kInvalid;
+  }
+}
+
+int run_dq(const Args& a, bool aligned) {
+  switch (forward_dim(a.d)) {
+    case 16: return dq_at<16>(a, aligned);
+    case 32: return dq_at<32>(a, aligned);
+    case 48: return dq_at<48>(a, aligned);
+    case 64: return dq_at<64>(a, aligned);
+    case 80: return dq_at<80>(a, aligned);
+    case 96: return dq_at<96>(a, aligned);
+    case 112: return dq_at<112>(a, aligned);
+    case 128: return dq_at<128>(a, aligned);
+    case 160: return dq_at<160>(a, aligned);
+    case 256: return dq_at<256>(a, aligned);
     default: return kInvalid;
   }
 }
@@ -655,7 +894,7 @@ int sc_flash_fwd_mma(const void* q, const void* k, const void* v, void* o, float
                      cudaStream_t stream) {
   if (b <= 0 || hq <= 0 || sq <= 0) return 0;
   if (bad_shape(b, hq, hkv, sq, sk)) return kInvalid;
-  Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, nullptr, lse,
+  Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, nullptr, nullptr, lse,
          b, hq, hkv, sq, sk, d, copy_strides(strides, 9), scale, causal, stream};
   return run_fwd(a, aligned != 0);
 }
@@ -670,9 +909,23 @@ int sc_flash_bwd_dkv_mma(const void* q, const void* k, const void* v, const void
                          cudaStream_t stream) {
   if (b <= 0 || hkv <= 0 || sk <= 0) return 0;
   if (bad_shape(b, hq, hkv, sq, sk)) return kInvalid;
-  Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, nullptr,
+  Args a{q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv, nullptr,
          b, hq, hkv, sq, sk, d, copy_strides(strides, 12), scale, causal, stream};
   return run_dkv(a, aligned != 0);
+}
+
+// dq (b, hq, sq, d), bf16 only. Strides and aligned as for
+// sc_flash_bwd_dkv_mma.
+int sc_flash_bwd_dq_mma(const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* delta, void* dq,
+                        int b, int hq, int hkv, int sq, int sk, int d,
+                        const long long* strides, float scale, int causal, int aligned,
+                        cudaStream_t stream) {
+  if (b <= 0 || hq <= 0 || sq <= 0) return 0;
+  if (bad_shape(b, hq, hkv, sq, sk)) return kInvalid;
+  Args a{q, k, v, dout, lse, delta, nullptr, dq, nullptr, nullptr, nullptr,
+         b, hq, hkv, sq, sk, d, copy_strides(strides, 12), scale, causal, stream};
+  return run_dq(a, aligned != 0);
 }
 
 }  // extern "C"

@@ -6,12 +6,11 @@ On CPU tensors :func:`flash_attention_fwd` and :func:`flash_attention_bwd`
 run the plain versions (``ref.attention_with_lse``, ``ref.attention_bwd``);
 on CUDA tensors they launch the hand-written kernels (one launch each of
 ``flash_fwd``, and of ``flash_bwd_dq`` and ``flash_bwd_dkv``), or raise.
-:func:`variant` picks the kernel of ``flash_fwd`` and ``flash_bwd_dkv``
-from the dtype and the head width alone, before the launch: bf16 up to
-``MMA_MAX_HEAD_DIM`` takes the tensor-core kernels of
-``csrc/flash_attention_mma.cu`` (variant ``mma``), everything else the
-CUDA-core kernels of ``csrc/flash_attention.cu`` (``cuda_core``), which
-also hold ``flash_bwd_dq``. The kernels take q, k, v and do with any batch,
+:func:`variant` picks the kernel of each from the dtype and the head width
+alone, before the launch: bf16 up to ``MMA_MAX_HEAD_DIM`` takes the
+tensor-core kernels of ``csrc/flash_attention_mma.cu`` (variant ``mma``),
+everything else the CUDA-core kernels of ``csrc/flash_attention.cu``
+(``cuda_core``). The kernels take q, k, v and do with any batch,
 head and row strides as long as each row is contiguous, so the model's
 transposed views, and the transposed gradient autograd hands the backward,
 reach them without a copy (the ``mma`` kernels copy rows 16 bytes at a
@@ -35,21 +34,22 @@ from . import cuda, ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
-# The widest head each tensor-core kernel holds: the forward's O
-# accumulator fits in registers up to 256; dk/dv keeps two accumulators,
+# The widest head each tensor-core kernel holds: the forward's O and dq's
+# dQ accumulator fit in registers up to 256; dk/dv keeps two accumulators,
 # which fit up to 128.
-MMA_MAX_HEAD_DIM = {"flash_fwd": 256, "flash_bwd_dkv": 128}
-# The C entry point of each (kernel, variant); dq has one kernel.
+MMA_MAX_HEAD_DIM = {"flash_fwd": 256, "flash_bwd_dq": 256, "flash_bwd_dkv": 128}
+# The C entry point of each (kernel, variant).
 _ENTRY = {("flash_fwd", "mma"): "sc_flash_fwd_mma",
           ("flash_fwd", "cuda_core"): "sc_flash_fwd",
-          ("flash_bwd_dq", None): "sc_flash_bwd_dq",
+          ("flash_bwd_dq", "mma"): "sc_flash_bwd_dq_mma",
+          ("flash_bwd_dq", "cuda_core"): "sc_flash_bwd_dq",
           ("flash_bwd_dkv", "mma"): "sc_flash_bwd_dkv_mma",
           ("flash_bwd_dkv", "cuda_core"): "sc_flash_bwd_dkv"}
 
 
 def variant(kernel: str, dtype: torch.dtype, d: int) -> str:
-    """The kernel a launch of ``kernel`` (``flash_fwd`` or ``flash_bwd_dkv``)
-    takes for inputs of ``dtype`` and head width ``d``: ``"mma"`` (bf16
+    """The kernel a launch of ``kernel`` (``flash_fwd``, ``flash_bwd_dq`` or
+    ``flash_bwd_dkv``) takes for inputs of ``dtype`` and head width ``d``: ``"mma"`` (bf16
     tensor cores) for bf16 up to ``MMA_MAX_HEAD_DIM[kernel]``, else
     ``"cuda_core"`` (f32 FMAs)."""
     if dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM[kernel]:
@@ -120,7 +120,7 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def _last_arg(kind: str | None, *inputs: torch.Tensor) -> ctypes.c_int:
+def _last_arg(kind: str, *inputs: torch.Tensor) -> ctypes.c_int:
     """The entry point's last argument before the stream: the ``mma``
     kernels' alignment flag, the CUDA-core kernels' dtype code."""
     if kind == "mma":
@@ -143,14 +143,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _flash_cuda(q, k, v, causal, scale)
 
 
-def _launch_bwd(kernel: str, kind: str | None, q, k, v, do, lse, delta, causal: bool,
-                scale: float, *outputs: torch.Tensor) -> None:
-    """One launch of a backward kernel (its variant ``kind``; dq has none)
+def _launch_bwd(kernel: str, q, k, v, do, lse, delta, causal: bool, scale: float,
+                *outputs: torch.Tensor) -> None:
+    """One launch of a backward kernel, of the variant :func:`variant` picks,
     writing ``outputs`` (``lse`` and ``delta`` contiguous f32; the rest
     checked by the caller)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     strides = _strides(q, k, v, do)
+    kind = variant(kernel, q.dtype, d)
     native.launch(kernel, _ENTRY[kernel, kind], q.device,
                   ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
                   *(ptr(t) for t in outputs),
@@ -161,10 +162,11 @@ def _launch_bwd(kernel: str, kind: str | None, q, k, v, do, lse, delta, causal: 
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal: bool, scale: float) -> torch.Tensor:
-    """dq from one ``flash_bwd_dq`` launch (none when q is empty)."""
+    """dq from one ``flash_bwd_dq`` launch of the kernel :func:`variant`
+    picks (none when q is empty)."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel():
-        _launch_bwd("flash_bwd_dq", None, q, k, v, do, lse, delta, causal, scale, dq)
+        _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, causal, scale, dq)
     return dq
 
 
@@ -175,8 +177,7 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     if dk.numel():
-        kind = variant("flash_bwd_dkv", q.dtype, q.shape[-1])
-        _launch_bwd("flash_bwd_dkv", kind, q, k, v, do, lse, delta, causal, scale, dk, dv)
+        _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, causal, scale, dk, dv)
     return dk, dv
 
 

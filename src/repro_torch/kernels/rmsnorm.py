@@ -2,10 +2,12 @@
 ``repro.kernels.rmsnorm``.
 
 On CPU tensors :func:`rmsnorm` runs the plain version (``ref.rmsnorm``); on
-CUDA tensors it launches the hand-written kernel of ``csrc/rmsnorm.cu``,
-which covers both Pallas kernels (``_rmsnorm_kernel`` and, with a residual,
+CUDA tensors it launches the hand-written kernels of ``csrc/rmsnorm.cu``,
+which cover both Pallas kernels (``_rmsnorm_kernel`` and, with a residual,
 ``_rmsnorm_res_kernel``), or raises. One launch per call, counted under
-``rmsnorm`` (and ``rmsnorm/residual``).
+``rmsnorm`` (and ``rmsnorm/residual`` with a residual). The vector kernel
+takes rows it may copy 16 bytes at a time (:func:`vector_ok`); any other
+row takes the scalar kernel, counted under ``rmsnorm/scalar``.
 
 :class:`RMSNorm` is its ``torch.autograd.Function``. The JAX package has no
 gradient for its Pallas RMSNorm (``jax.grad`` through it fails to
@@ -27,6 +29,21 @@ from ..native import ptr
 from . import cuda, ref
 
 DTYPES = (torch.float32, torch.bfloat16)
+# The vector kernel's shared memory with one warp at most (csrc/rmsnorm.cu:
+# kMaxSmem): w, and two buffers of a row (of x, and of the residual).
+VECTOR_MAX_SMEM = 200 << 10
+
+
+def vector_ok(x: torch.Tensor, w: torch.Tensor, residual: torch.Tensor | None,
+              out: torch.Tensor) -> bool:
+    """Whether the vector kernel takes these contiguous tensors: every one
+    starts on 16 bytes, the row length d is a multiple of 8, and w with two
+    row buffers fits in ``VECTOR_MAX_SMEM``."""
+    d = x.shape[-1]
+    tensors = (x, w, out) if residual is None else (x, w, out, residual)
+    smem = d * w.element_size() + 2 * d * x.element_size() * (1 if residual is None else 2)
+    return (d % 8 == 0 and smem <= VECTOR_MAX_SMEM
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float,
@@ -45,12 +62,14 @@ def _rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float,
     rows = x.numel() // d if d else 0
     if rows == 0 or d == 0:
         return out
+    vec = vector_ok(x, w, residual, out)
+    variant = ("residual",) * (residual is not None) + ("scalar",) * (not vec)
     native.launch("rmsnorm", "sc_rmsnorm", x.device,
                   ptr(x), ptr(residual), ptr(w), ptr(out),
                   ctypes.c_longlong(rows), ctypes.c_int(d),
                   ctypes.c_int(cuda.DTYPE_CODES[x.dtype]),
                   ctypes.c_int(cuda.DTYPE_CODES[w.dtype]), ctypes.c_float(eps),
-                  variant=None if residual is None else "residual")
+                  ctypes.c_int(int(vec)), variant=variant)
     return out
 
 

@@ -142,21 +142,23 @@ def _function(fn: str) -> ctypes._CFuncPtr:
 
 
 def launch(kernel: str, fn: str, device: torch.device, *args,
-           variant: str | None = None) -> None:
+           variant: str | tuple[str, ...] | None = None) -> None:
     """Call entry point ``fn`` with ``args`` and ``device``'s current
-    stream, then count one launch of ``kernel`` (and of its ``variant``).
-    Every entry point returns ``cudaGetLastError()``; a non-zero code raises
-    ``RuntimeError`` and counts nothing."""
+    stream, then count one launch of ``kernel`` (and of each of its
+    variants: ``variant`` names one or several). Every entry point returns
+    ``cudaGetLastError()``; a non-zero code raises ``RuntimeError`` and
+    counts nothing."""
     f = _function(fn)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = f(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
+    variants = (variant,) if isinstance(variant, str) else variant or ()
     with _count_lock:
         _counts[kernel] += 1
-        if variant is not None:
-            _counts[f"{kernel}/{variant}"] += 1
+        for name in variants:
+            _counts[f"{kernel}/{name}"] += 1
 
 
 class LaunchCounts(Mapping):

@@ -9,8 +9,9 @@ and the SSD scan within the JAX kernel tests' tolerances (1e-5 / 2e-2,
 2e-5 / 3e-2 and 2e-4 / 5e-2 in f32 / bf16), the flash backward within 2e-4
 in f32 (the JAX gradient test's) and 3e-2 in bf16 (one bf16 rounding of
 each gradient, as the forward's); each bf16 flash case also checks which
-kernel it took (the tensor cores or the CUDA cores), and the forward must
-repeat bitwise. Needs a card; every test skips without one:
+kernel it took (the tensor cores or the CUDA cores), and the forward and
+the dq backward must repeat bitwise. Needs a card; every test skips without
+one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -247,8 +248,27 @@ def test_rmsnorm_kernel_matches_cpu(dev, shape, dtype):
                               else res.to(dev))
             assert ops.launches["rmsnorm"] == 1
             assert ops.variant_launches["rmsnorm/residual"] == (res is not None)
+            # rows of a multiple of 8 on 16 bytes take the vector kernel
+            assert ops.variant_launches["rmsnorm/scalar"] == (shape[-1] % 8 != 0)
             close((kref.rmsnorm(x, w, residual=res),), (got,), RMS_TOL[dtype],
                   f"{shape} w {w.dtype} residual {res is not None}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_scalar_kernel_on_rows_off_16_bytes(dev, dtype):
+    """Rows that do not start on 16 bytes take the scalar kernel, with and
+    without a residual, and agree with the CPU as the vector kernel does."""
+    shape = (64, 5120)
+    x, r = randn(shape, dtype, 1), randn(shape, dtype, 2)
+    w = randn(shape[-1:], dtype, 3, 0.1, 1.0)
+    n = x.numel()
+    xd = torch.empty(n + 1, dtype=dtype, device=dev)[1:].view(shape)
+    xd.copy_(x.to(dev))
+    for res in (None, r):
+        ops.reset_launches()
+        got = ops.rmsnorm(xd, w.to(dev), residual=None if res is None else res.to(dev))
+        assert ops.launches["rmsnorm"] == ops.variant_launches["rmsnorm/scalar"] == 1
+        close((kref.rmsnorm(x, w, residual=res),), (got,), RMS_TOL[dtype], f"residual {res is not None}")
 
 
 BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
@@ -274,9 +294,9 @@ FLASH_CASES = [  # b, hq, hkv, sq, sk, d, causal
     (1, 8, 2, 150, 150, 96, True),
     (1, 8, 2, 150, 150, 128, True),
 ]
-# The kernel each bf16 launch of flash_fwd and flash_bwd_dkv must take (f32
-# always keeps the CUDA cores): the tensor cores up to these head widths.
-MMA_WIDTH = {"flash_fwd": 256, "flash_bwd_dkv": 128}
+# The kernel each bf16 flash launch must take (f32 always keeps the CUDA
+# cores): the tensor cores up to these head widths.
+MMA_WIDTH = {"flash_fwd": 256, "flash_bwd_dq": 256, "flash_bwd_dkv": 128}
 
 
 def expect_variant(kernel, dtype, d):
@@ -334,9 +354,60 @@ def test_flash_bwd_kernels_match_cpu(dev, b, hq, hkv, sq, sk, d, causal, dtype):
     ops.reset_launches()
     got = flash_attention_bwd(*(t.to(dev) for t in (q, k, v, o, lse, do)), causal=causal)
     assert ops.launches["flash_bwd_dq"] == 1 and ops.launches["flash_bwd_dkv"] == 1
+    expect_variant("flash_bwd_dq", dtype, d)
     expect_variant("flash_bwd_dkv", dtype, d)
     close(flash_attention_bwd(q, k, v, o, lse, do, causal=causal), got, BWD_TOL[dtype],
           f"{(b, hq, hkv, sq, sk, d, causal)} {dtype}")
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[1]])
+def test_flash_bwd_dq_repeats_bitwise(dev, case):
+    """The bf16 dq kernel is deterministic: 20 launches at the serving
+    oracle's shape and at the training head dim 80 give the same bits, and
+    lie within BWD_TOL of the CPU. Names the first launch that differs."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, d, causal = case
+    dtype = torch.bfloat16
+    q, k, v, do = (randn(shape, dtype, seed) for seed, shape in enumerate(
+        ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, hq, sq, d)), 1))
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    want = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)[0]
+    args = [t.to(dev) for t in (q, k, v, do, lse)]
+    delta = (args[3].float() * o.to(dev).float()).sum(-1)
+    ops.reset_launches()
+    first = fa._launch_dq(*args, delta, causal, 1.0 / d**0.5)
+    close((want,), (first,), BWD_TOL[dtype], f"{case}")
+    differs = [run for run in range(1, 20) if not torch.equal(
+        fa._launch_dq(*args, delta, causal, 1.0 / d**0.5), first)]
+    assert ops.variant_launches["flash_bwd_dq/mma"] == ops.launches["flash_bwd_dq"] == 20
+    assert not differs, f"runs {differs} differ from run 0 (first: {differs[:1]})"
+
+
+def test_flash_bwd_dq_entries_refuse_what_they_do_not_run(dev):
+    """Neither dq kernel takes the other's inputs: the CUDA-core entry
+    refuses bf16, the tensor-core entry head widths past 256; each refusal
+    raises and counts no launch."""
+    import ctypes
+
+    from repro_torch import native
+    from repro_torch.kernels import flash_attention as fa
+
+    def launch(entry, dtype, d, last):
+        q = torch.ones(1, 2, 8, d, dtype=dtype, device=dev)
+        lse = torch.zeros(1, 2, 8, device=dev)
+        args = (q, q[:, :1], q[:, :1], q, lse, lse, torch.empty_like(q))
+        native.launch("flash_bwd_dq", entry, dev, *(native.ptr(t) for t in args),
+                      *(ctypes.c_int(n) for n in (1, 2, 1, 8, 8, d)),
+                      ctypes.cast(fa._strides(*args[:4]), ctypes.c_void_p),
+                      ctypes.c_float(1.0), ctypes.c_int(1), ctypes.c_int(last))
+
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="sc_flash_bwd_dq"):
+        launch("sc_flash_bwd_dq", torch.bfloat16, 80, 1)       # dtype code 1: bf16
+    with pytest.raises(RuntimeError, match="sc_flash_bwd_dq_mma"):
+        launch("sc_flash_bwd_dq_mma", torch.bfloat16, 320, 1)  # aligned, d > 256
+    assert ops.launches["flash_bwd_dq"] == 0
 
 
 def test_flash_bwd_keyless_rows_and_strided_grad(dev):

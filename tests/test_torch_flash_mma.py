@@ -7,13 +7,15 @@ The wrapper's choice of kernel (``variant``: dtype and head width to
 kernels themselves run only on the card; what they change in the numbers
 is emulated here in PyTorch: the forward's online softmax over 64-column
 kv tiles with P rounded to bf16 before P·V (the normaliser sums the
-unrounded p), and the dk/dv backward with Pᵀ and dSᵀ rounded to bf16
-before Pᵀ·dO and dSᵀ·Q, every product on bf16 operands with f32 sums. The
-emulation is held against the JAX package's Pallas forward and
-``jax.grad`` of its custom VJP in interpret mode, on bf16 inputs made with
-numpy from a seed, within the bounds the card is held to (3e-2 elementwise
-and 1e-2 of ‖want‖), causal and ragged, with GQA group 4.
+unrounded p), the dk/dv backward with Pᵀ and dSᵀ rounded to bf16 before
+Pᵀ·dO and dSᵀ·Q, and the dq backward with dS rounded to bf16 before dS·K,
+every product on bf16 operands with f32 sums. The emulation is held
+against the JAX package's Pallas forward and ``jax.grad`` of its custom VJP
+in interpret mode, on bf16 inputs made with numpy from a seed, within the
+bounds the card is held to (3e-2 elementwise and 1e-2 of ‖want‖), causal
+and ragged, with GQA group 4.
 """
+import functools
 import math
 
 import jax
@@ -100,6 +102,27 @@ def mma_dkv(q, k, v, o, lse, do, causal, scale=None):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def mma_dq(q, k, v, o, lse, do, causal, scale=None):
+    """dq rounded as ``flash_bwd_dq_mma_kernel`` rounds: S and dP on bf16
+    operands in f32, P = exp(S·scale − lse) and dS = P ⊙ (dP − δ)·scale in
+    f32, dS rounded to bf16 for dS·K with f32 sums, dq rounded once."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, hkv, g, sq, d)
+    dof = do.float().reshape(b, hkv, g, sq, d)
+    s = torch.einsum("bkgqd,bktd->bkgqt", qf, k.float()) * scale
+    p = torch.exp(s - lse.reshape(b, hkv, g, sq, 1))
+    if causal:
+        p = p.masked_fill(torch.arange(sk)[None, :] > torch.arange(sq)[:, None], 0.0)
+    delta = (dof * o.float().reshape(b, hkv, g, sq, d)).sum(-1, keepdim=True)
+    dp = torch.einsum("bkgqd,bktd->bkgqt", dof, v.float())
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bkgqt,bktd->bkgqd", ds.bfloat16().float(), k.float())
+    return dq.reshape(b, hq, sq, d).to(q.dtype)
+
+
 def bf16_inputs(b, hq, hkv, sq, sk, d, seed=11):
     """q, k, v as the same bf16 bits in numpy f32, JAX and torch."""
     rng = np.random.default_rng(seed)
@@ -130,10 +153,11 @@ def hold(got, want, what):
 @pytest.mark.parametrize("d", [16, 64, 80, 96, 100, 128, 160, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_variant_by_dtype_and_head_width(dtype, d):
-    """bf16 takes the tensor cores up to 256 in the forward and 128 in dk/dv;
-    f32 always keeps the CUDA cores (no TF32)."""
+    """bf16 takes the tensor cores up to 256 in the forward and dq and 128
+    in dk/dv; f32 always keeps the CUDA cores (no TF32)."""
     bf16 = dtype == torch.bfloat16
     assert fa.variant("flash_fwd", dtype, d) == ("mma" if bf16 else "cuda_core")
+    assert fa.variant("flash_bwd_dq", dtype, d) == ("mma" if bf16 else "cuda_core")
     assert fa.variant("flash_bwd_dkv", dtype, d) == ("mma" if bf16 and d <= 128
                                                      else "cuda_core")
 
@@ -174,12 +198,11 @@ def test_mma_forward_rounding_within_bounds_of_pallas(b, hq, hkv, sq, sk, d, cau
     hold(lse, plain_lse.numpy(), f"lse vs plain {case}")
 
 
-@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", BWD_CASES)
-def test_mma_dkv_rounding_within_bounds_of_pallas_grad(b, hq, hkv, sq, sk, d, causal):
+@functools.lru_cache(maxsize=None)
+def pallas_grad_case(b, hq, hkv, sq, sk, d, causal):
     """The loss of the JAX gradient test, sum(o·cos o) over the f32 output:
-    JAX's dq, dk, dv through its Pallas custom VJP against the emulated
-    forward and dk/dv (dq from the unchanged CUDA-core kernel's plain
-    version)."""
+    JAX's (dq, dk, dv) through its Pallas custom VJP in interpret mode, and
+    the emulated forward's q, k, v, o, lse and output gradient do."""
     (q, k, v), (qj, kj, vj) = bf16_inputs(b, hq, hkv, sq, sk, d)
 
     def loss(q, k, v):
@@ -190,9 +213,31 @@ def test_mma_dkv_rounding_within_bounds_of_pallas_grad(b, hq, hkv, sq, sk, d, ca
     o, lse = mma_forward(q, k, v, causal)
     of = o.float()
     do = (torch.cos(of) - of * torch.sin(of)).bfloat16()   # d sum(o·cos o) / do
+    return want, (q, k, v, o, lse, do)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", BWD_CASES)
+def test_mma_dkv_rounding_within_bounds_of_pallas_grad(b, hq, hkv, sq, sk, d, causal):
+    """JAX's dq, dk, dv against the emulated forward and dk/dv (dq here from
+    the plain version; the dq kernel's rounding is held below)."""
+    want, (q, k, v, o, lse, do) = pallas_grad_case(b, hq, hkv, sq, sk, d, causal)
     dq = ref.attention_bwd(q, k, v, o, lse, do, causal=causal)[0]
     dk, dv = mma_dkv(q, k, v, o, lse, do, causal)
     case = (b, hq, hkv, sq, sk, d, causal)
     for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.dtype == torch.bfloat16
         hold(got, w.astype(jnp.float32), f"{name} {case}")
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", BWD_CASES)
+def test_mma_dq_rounding_within_bounds_of_pallas_grad(b, hq, hkv, sq, sk, d, causal):
+    """JAX's dq against the emulated dq kernel (dS in bf16 before dS·K), from
+    the emulated forward's o and lse; and the rounding is the only change
+    from the plain version."""
+    want, (q, k, v, o, lse, do) = pallas_grad_case(b, hq, hkv, sq, sk, d, causal)
+    dq = mma_dq(q, k, v, o, lse, do, causal)
+    case = (b, hq, hkv, sq, sk, d, causal)
+    assert dq.dtype == torch.bfloat16
+    hold(dq, want[0].astype(jnp.float32), f"dq {case}")
+    plain = ref.attention_bwd(q, k, v, o, lse, do, causal=causal)[0]
+    hold(dq, plain.float().numpy(), f"dq vs plain {case}")

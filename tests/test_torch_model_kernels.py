@@ -130,6 +130,26 @@ def test_cpu_tensors_launch_no_model_kernel():
     assert all(v == 0 for v in ops.variant_launches.values())
 
 
+def test_rmsnorm_vector_kernel_rule():
+    """The vector RMSNorm takes rows on 16 bytes whose length is a multiple
+    of 8 and whose w and two row buffers fit its shared memory; any other
+    row takes the scalar kernel."""
+    from repro_torch.kernels.rmsnorm import VECTOR_MAX_SMEM, vector_ok
+
+    def case(d, dtype=torch.bfloat16, wdtype=None, residual=False, offset=0):
+        x = torch.zeros(2 * d + 8, dtype=dtype)[offset:offset + 2 * d].view(2, d)
+        w = torch.zeros(d, dtype=wdtype or dtype)
+        return vector_ok(x, w, x.clone() if residual else None, torch.empty_like(x))
+
+    assert case(5120) and case(5120, torch.float32) and case(8)
+    assert case(5120, torch.float32, torch.bfloat16, residual=True)
+    assert not case(100) and not case(5124, torch.float32)       # d not a multiple of 8
+    assert not case(5120, offset=1) and case(5120, offset=8)    # the base off / on 16 bytes
+    widest = VECTOR_MAX_SMEM // (2 + 2 * 2)                    # bf16 w and rows
+    assert case(widest // 8 * 8) and not case(widest // 8 * 8 + 8)
+    assert not case(widest // 8 * 8, residual=True)
+
+
 # ---------------------------------------------------------------------------
 # configs
 # ---------------------------------------------------------------------------
