@@ -17,7 +17,9 @@ Phases, in order; any failure raises and exits non-zero:
              shapes (16,777,216 rows; a 4,194,304-key join index; P = 8
              partitions, and P = 4096 and 100,003 across the shared-memory
              histogram limit, on uniform and Zipf(1.3) keys), with edge
-             cases; RMSNorm (with and without residual, and the scalar
+             cases (a column off 16 bytes for the scalar compare, INT64_MIN
+             in an int64 MAP column, NaN, +-inf and values past 2^63 for
+             the encode); RMSNorm (with and without residual, and the scalar
              kernel on rows off 16 bytes) and the
              flash-attention forward within the JAX kernel tests'
              tolerances at the serving path's shapes (rows of 5120;
@@ -44,13 +46,16 @@ Phases, in order; any failure raises and exits non-zero:
              S/C output must be bitwise the serial output, the catalog
              within budget, and every kernel of the round launched; the S/C
              round then runs once more under ``torch.profiler`` for the
-             device's busy share;
+             device's busy share; the (L, n) shapes of the join probe's
+             launches are logged;
 5. part    — the same calibrated workload through an incremental scenario
              (one round of 10% ingest, 5% update, 2% delete after the
              build), hash-partitioned P = 8 ways and unpartitioned, with the
              1.6 GB catalog: the partitioned stores must reassemble bitwise
              to the unpartitioned ones, every round's catalog stay within
-             budget, and ``pid_hist`` and the weighted encode launch;
+             budget, and ``pid_hist`` and the weighted encode launch; the
+             probe's launch shapes are logged, and the probe is held and
+             timed once more at the partitioned path's commonest shape;
 6. cpu     — the round, and the partitioned scenario (two incremental
              rounds), at 4 MiB per root on
              the card and on the CPU (plain versions): every stored MV and
@@ -98,6 +103,8 @@ sources are not beside this script.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -142,6 +149,7 @@ MMA_SASS = {"flash_fwd": "flash_fwd_mma_kernelILi80ELb1E",
 # Which Pallas kernel each port kernel replaces (JAX package, file:line).
 REPLACES = {
     "filter_gt": "src/repro/mv/dataplane.py:364",
+    "filter_gt_scalar": "src/repro/mv/dataplane.py:364",
     "map_derived": "src/repro/mv/dataplane.py:376",
     "fixed_point_encode": "src/repro/mv/dataplane.py:395",
     "probe_sorted": "src/repro/mv/dataplane.py:421",
@@ -455,18 +463,18 @@ def kernel_cases(torch, np, dp, dev, per_row):
     b32[:8] = specials.flip(0)
     v32 = randn(torch.float32) * 100
     half = 0.5 / 65536.0
-    v32[:6] = torch.tensor([half, -half, 3 * half, 1.0 + half, 123.456, 0.0],
-                           device=dev)
+    # then NaN, +-inf and 2^47 (2^47 * 2^16 = 2^63 lies outside int64):
+    # INT64_MIN, as x86 numpy converts; -2^47 gives INT64_MIN in range
+    v32[:11] = torch.tensor([half, -half, 3 * half, 1.0 + half, 123.456, 0.0,
+                             float("nan"), float("inf"), -float("inf"), 2.0**47,
+                             -(2.0**47)], device=dev)
     w = torch.randint(-3, 4, (n,), generator=gen, device=dev)
     w[:6] = torch.tensor([7, -7, 1 << 45, -(1 << 50), I64MAX, I64MIN], device=dev)
-    uniq = torch.arange(N_INDEX, device=dev, dtype=torch.int64) * 2 - N_INDEX
-    uniq[-1] = I64MAX
-    probe = torch.randint(-N_INDEX - 4, N_INDEX + 4, (n,), generator=gen,
-                          device=dev)
-    probe[:6] = torch.tensor([I64MAX, I64MIN, I64MAX - 1, N_INDEX - 2,
-                              -N_INDEX, -N_INDEX - 1], device=dev)
-    steps = math.ceil(math.log2(N_INDEX)) + 1
     thr = 0.1
+    # a view off 16 bytes: the scalar compare (filter_gt/scalar)
+    f32_off = torch.empty(n + 1, device=dev)[1:]
+    f32_off.copy_(f32)
+    F = torch.nn.functional
     edges = torch.tensor([I64MIN, I64MAX, -1, 0], device=dev)
     keys = torch.from_numpy(np.random.default_rng(12).integers(
         I64MIN, I64MAX, n, dtype=np.int64, endpoint=True)).to(dev)
@@ -485,11 +493,16 @@ def kernel_cases(torch, np, dp, dev, per_row):
          lambda: (dp._filter_plain(f64, thr),), lambda: (torch.gt(f64, thr),), n),
         ("filter_gt", "i64", (i64,), lambda: (dp.filter_mask(i64, -0.3),),
          lambda: (dp._filter_plain(i64, -0.3),), None, n),
+        ("filter_gt", "f32_unaligned", (f32_off,), lambda: (dp.filter_mask(f32_off, thr),),
+         lambda: (dp._filter_plain(f32_off, thr),), lambda: (torch.gt(f32_off, thr),), n),
         ("map_derived", "two_f32", (f32, b32),
          lambda: (dp.map_derived(f32, b32),), lambda: (dp._map_plain(f32, b32),),
          None, 5 * n),
         ("map_derived", "one_f32", (f32,), lambda: (dp.map_derived(f32, None),),
-         lambda: (dp._map_plain(f32, None),), None, 3 * n),
+         lambda: (dp._map_plain(f32, None),), lambda: (F.softsign(f32),), 3 * n),
+        # INT64_MIN among the rows: |x| wraps as numpy's, softsign 1.0
+        ("map_derived", "one_i64", (i64,), lambda: (dp.map_derived(i64, None),),
+         lambda: (dp._map_plain(i64, None),), None, 3 * n),
         ("map_derived", "two_f64", (f64, b32),
          lambda: (dp.map_derived(f64, b32),), lambda: (dp._map_plain(f64, b32),),
          None, 5 * n),
@@ -502,9 +515,7 @@ def kernel_cases(torch, np, dp, dev, per_row):
         ("fixed_point_encode", "f64", (f64,),
          lambda: (dp.fixed_point_encode(f64),),
          lambda: (dp._encode_plain(f64, None),), None, 2 * n),
-        ("probe_sorted", "16.7M_into_4.2M", (uniq, probe),
-         lambda: dp.probe_sorted(uniq, probe), lambda: dp._probe_plain(uniq, probe),
-         lambda: (torch.searchsorted(uniq, probe),), steps * n),
+        probe_case(torch, dp, dev, N_INDEX, n, "16.7M_into_4.2M"),
         # uint64 output, compared (and timed) through an int64 view
         ("hash64", "uniform", (keys,), lambda: (dp.hash64(keys).view(torch.int64),),
          lambda: (dp._hash64_i64(keys),), None, per_row["hash64"] * n),
@@ -526,37 +537,84 @@ def kernel_phase(torch, np, dp, dev, bw, inst_rate, per_row):
     shape and dtype its main-path calls take). A float kernel's operations
     count against the f32 rate, a hash kernel's SASS instructions against
     the card's issue rate."""
-    rows = []
-    for kernel, case, inputs, kfn, pfn, lfn, ops in kernel_cases(
-            torch, np, dp, dev, per_row):
-        got, want = kfn(), pfn()
-        torch.cuda.synchronize()
-        if not bitwise_equal(torch, got, want):
-            raise AssertionError(f"{kernel}/{case}: kernel differs from plain")
-        err = max_abs_err(torch, got, want)
-        nbytes = sum(t.nbytes for t in inputs) + sum(t.nbytes for t in got)
-        bytes_ms = nbytes / bw * 1e3
-        rate = inst_rate if kernel in HASH_SASS else PEAK_FLOPS
-        ops_ms = ops / rate * 1e3
-        row = dict(
-            kernel=kernel, case=case, max_abs_err=err,
-            ms=time_ms(torch, kfn), device_ms=device_ms(torch, kfn),
-            plain_ms=time_ms(torch, pfn),
-            library_ms=None if lfn is None else time_ms(torch, lfn),
-            library_device_ms=None if lfn is None else device_ms(torch, lfn),
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            bytes=nbytes,
-        )
-        rows.append(row)
-        log(f"kernel {kernel:<19} {case:<16} bitwise ok  max_abs_err={err} "
-            f"ms={row['ms']} device_ms={row['device_ms']} plain_ms={row['plain_ms']} "
-            f"library_ms={row['library_ms']} library_device_ms={row['library_device_ms']} "
-            f"bound_ms={row['bound_ms']} ({row['bound_by']}, {nbytes} B, bytes "
-            f"{bytes_ms} ms, ops {ops_ms} ms)")
-        if kernel == "pid_hist":
-            check_grouping(torch, dp, inputs[0], got[0], case)
-    return rows
+    return [kernel_row(torch, dp, bw, inst_rate, *case)
+            for case in kernel_cases(torch, np, dp, dev, per_row)]
+
+
+def kernel_row(torch, dp, bw, inst_rate, kernel, case, inputs, kfn, pfn, lfn, ops):
+    """One case of :func:`kernel_cases`' form, held bitwise and timed."""
+    got, want = kfn(), pfn()
+    torch.cuda.synchronize()
+    if not bitwise_equal(torch, got, want):
+        raise AssertionError(f"{kernel}/{case}: kernel differs from plain")
+    err = max_abs_err(torch, got, want)
+    nbytes = sum(t.nbytes for t in inputs) + sum(t.nbytes for t in got)
+    bytes_ms = nbytes / bw * 1e3
+    rate = inst_rate if kernel in HASH_SASS else PEAK_FLOPS
+    ops_ms = ops / rate * 1e3
+    row = dict(
+        kernel=kernel, case=case, max_abs_err=err,
+        ms=time_ms(torch, kfn), device_ms=device_ms(torch, kfn),
+        plain_ms=time_ms(torch, pfn),
+        library_ms=None if lfn is None else time_ms(torch, lfn),
+        library_device_ms=None if lfn is None else device_ms(torch, lfn),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bytes=nbytes,
+    )
+    log(f"kernel {kernel:<19} {case:<16} bitwise ok  max_abs_err={err} "
+        f"ms={row['ms']} device_ms={row['device_ms']} plain_ms={row['plain_ms']} "
+        f"library_ms={row['library_ms']} library_device_ms={row['library_device_ms']} "
+        f"bound_ms={row['bound_ms']} ({row['bound_by']}, {nbytes} B, bytes "
+        f"{bytes_ms} ms, ops {ops_ms} ms)")
+    if kernel == "pid_hist":
+        check_grouping(torch, dp, inputs[0], got[0], case)
+    return row
+
+
+def probe_case(torch, dp, dev, L, n, name):
+    """A ``probe_sorted`` case of :func:`kernel_cases`' form at (L, n): L
+    even keys around 0 with INT64_MAX last, n uniform probes over them
+    (about half hit) with the extremes among the first."""
+    gen = torch.Generator(device=dev).manual_seed(L)
+    uniq = torch.arange(L, device=dev, dtype=torch.int64) * 2 - L
+    uniq[-1] = I64MAX
+    probe = torch.randint(-L - 4, L + 4, (n,), generator=gen, device=dev)
+    probe[:6] = torch.tensor([I64MAX, I64MIN, I64MAX - 1, L - 2, -L, -L - 1],
+                             device=dev)[:n]
+    steps = math.ceil(math.log2(L)) + 1
+    return ("probe_sorted", name, (uniq, probe), lambda: dp.probe_sorted(uniq, probe),
+            lambda: dp._probe_plain(uniq, probe),
+            lambda: (torch.searchsorted(uniq, probe),), steps * n)
+
+
+@contextlib.contextmanager
+def probe_shapes(dp):
+    """Count the (L, n) shape of every ``probe_sorted`` call that launches
+    its kernel inside the block (the operators call it through the module)."""
+    shapes = collections.Counter()
+    inner = dp.probe_sorted
+
+    def recording(uniq, probe):
+        if len(uniq) and len(probe) and uniq.is_cuda:
+            shapes[(len(uniq), len(probe))] += 1
+        return inner(uniq, probe)
+
+    dp.probe_sorted = recording
+    try:
+        yield shapes
+    finally:
+        dp.probe_sorted = inner
+
+
+def log_probe_shapes(label, shapes, launches):
+    """Print the distinct probe shapes, commonest first; they must account
+    for every launch of the kernel."""
+    if sum(shapes.values()) != launches:
+        raise AssertionError(f"{label}: {sum(shapes.values())} probe shapes recorded, "
+                             f"{launches} launches")
+    log(f"{label}: probe_sorted launches by (L, n): " + ", ".join(
+        f"({L}, {n}) x{c}" for (L, n), c in shapes.most_common()))
 
 
 def check_grouping(torch, dp, keys, pid, case):
@@ -1407,17 +1465,18 @@ def refresh_round(torch, core, mv, root, bytes_per_root, budget, device):
                              bytes_per_root=bytes_per_root, device=device)
     wl = on_device_fns(torch, wl, torch.device(device).type)
     dp.reset_launches()
-    t0 = time.perf_counter()
-    wl = mv.calibrate_sizes(wl, mv.DiskStore(root / "calib", device=device))
-    calib_s = time.perf_counter() - t0
-    shutil.rmtree(root / "calib")
-    graph = wl.to_graph()
-    plan = core.solve(graph, budget=budget)
-    serial = mv.DiskStore(root / "serial", device=device)
-    serial_rep = mv.Controller(wl, serial, 0.0).run(core.serial_plan(graph))
-    before_sc = dict(dp.launches)
-    sc = mv.DiskStore(root / "sc", device=device)
-    sc_rep = mv.Controller(wl, sc, budget).run(plan)
+    with probe_shapes(dp) as shapes:
+        t0 = time.perf_counter()
+        wl = mv.calibrate_sizes(wl, mv.DiskStore(root / "calib", device=device))
+        calib_s = time.perf_counter() - t0
+        shutil.rmtree(root / "calib")
+        graph = wl.to_graph()
+        plan = core.solve(graph, budget=budget)
+        serial = mv.DiskStore(root / "serial", device=device)
+        serial_rep = mv.Controller(wl, serial, 0.0).run(core.serial_plan(graph))
+        before_sc = dict(dp.launches)
+        sc = mv.DiskStore(root / "sc", device=device)
+        sc_rep = mv.Controller(wl, sc, budget).run(plan)
     launches = dict(dp.launches)
     sc_launches = {k: launches[k] - before_sc[k] for k in launches}
     names = [n.name for n in wl.nodes]
@@ -1430,7 +1489,8 @@ def refresh_round(torch, core, mv, root, bytes_per_root, budget, device):
             f"peak catalog {sc_rep.peak_catalog_bytes} exceeds budget {budget}")
     return dict(wl=wl, graph=graph, plan=plan, serial=serial, sc=sc,
                 serial_rep=serial_rep, sc_rep=sc_rep, calib_s=calib_s,
-                launches=launches, sc_launches=sc_launches, names=names)
+                launches=launches, sc_launches=sc_launches, names=names,
+                variants=dict(dp.variant_launches), probe_shapes=shapes)
 
 
 def device_kernel_times(torch, fn):
@@ -1487,14 +1547,15 @@ def run_scenarios(torch, core, mv, dp, wl, root, budget, device, n_rounds):
         store = mv.DiskStore(root / f"{label}_{device}", device=device)
         dp.reset_launches()
         t0 = time.perf_counter()
-        if label == "partitioned":
-            rep = mv.run_partitioned_scenario(wl, N_PARTITIONS, store, budget, spec,
-                                              core.PAPER_COST_MODEL, planner="auto")
-        else:
-            rep = mv.run_scenario(wl, store, budget, spec, core.PAPER_COST_MODEL)
+        with probe_shapes(dp) as shapes:
+            if label == "partitioned":
+                rep = mv.run_partitioned_scenario(wl, N_PARTITIONS, store, budget, spec,
+                                                  core.PAPER_COST_MODEL, planner="auto")
+            else:
+                rep = mv.run_scenario(wl, store, budget, spec, core.PAPER_COST_MODEL)
         out[label] = dict(rep=rep, store=store, seconds=time.perf_counter() - t0,
                           launches=dict(dp.launches),
-                          variants=dict(dp.variant_launches))
+                          variants=dict(dp.variant_launches), probe_shapes=shapes)
         for r in rep.rounds:
             if not r.run.peak_catalog_bytes <= budget:
                 raise AssertionError(
@@ -1599,6 +1660,8 @@ def main() -> int:
         check_finite(torch, name, b)
         del a, b
     unlaunched = [k for k in ROUND_KERNELS if main["launches"][k] <= 0]
+    if main["variants"]["probe_sorted/build"] <= 0:
+        unlaunched.append("probe_sorted/build")
     if unlaunched:
         raise AssertionError(f"kernels never launched on the main path: {unlaunched}")
     total_bytes = sum(main["graph"].sizes)
@@ -1613,8 +1676,9 @@ def main() -> int:
         f"write {sc_rep.write_seconds:.3f}s")
     log("main: S/C node seconds " + json.dumps(
         {k: round(v, 4) for k, v in sc_rep.node_seconds.items()}))
-    log(f"main: launches (calibrate+serial+S/C) {main['launches']}; "
+    log(f"main: launches (calibrate+serial+S/C) {main['launches']} {main['variants']}; "
         f"S/C round alone {main['sc_launches']}")
+    log_probe_shapes("main", main["probe_shapes"], main["launches"]["probe_sorted"])
     log("main: S/C output bitwise equal to serial; every kernel of the round "
         "launched; peak catalog within budget")
     shutil.rmtree(store_root / "main")
@@ -1634,7 +1698,9 @@ def main() -> int:
         log_rounds(label, run["rep"])
         log(f"part: {label} scenario {run['seconds']:.3f}s launches "
             f"{run['launches']} {run['variants']}")
+        log_probe_shapes(f"part: {label}", run["probe_shapes"], run["launches"]["probe_sorted"])
     part_launches = part["partitioned"]["launches"]
+    part_variants = part["partitioned"]["variants"]
     unlaunched = [k for k in (*ROUND_KERNELS, "pid_hist") if part_launches[k] <= 0]
     if part["partitioned"]["variants"]["fixed_point_encode/weighted"] <= 0:
         unlaunched.append("fixed_point_encode/weighted")
@@ -1644,8 +1710,12 @@ def main() -> int:
     log(f"part: P={N_PARTITIONS} stores reassemble bitwise to the unpartitioned "
         f"scenario (verify {part['verify_seconds']:.3f}s); every round within "
         f"budget; max_memory_allocated {part_mem} B")
+    # the probe at the partitioned path's commonest shape, beside the main one
+    (p_uniq, p_n), _ = part["partitioned"]["probe_shapes"].most_common(1)[0]
     del part
     shutil.rmtree(store_root, ignore_errors=True)
+    rows.append(kernel_row(torch, dp, bw, inst_rate, *probe_case(
+        torch, dp, dev, p_uniq, p_n, f"{p_n}_into_{p_uniq}_P{N_PARTITIONS}")))
     log(f"phase part {time.perf_counter() - t_phase:.1f}s")
 
     # -- 6. card against CPU ------------------------------------------------------
@@ -1729,7 +1799,15 @@ def main() -> int:
               for suffix, variant in (("", "mma"), ("_cuda_core", "cuda_core"))}
     for name, (kernel, variant) in row_of.items():
         model_launches[name] = model_launches.pop(f"{kernel}/{variant}")
-    headline = {"filter_gt": "f32", "map_derived": "two_f32",
+    # The data-plane kernels' launches: the main path's and the partitioned
+    # path's; the scalar compare's are its variant's share of filter_gt's.
+    dp_launches = {k: main["launches"][k] + part_launches[k] for k in main["launches"]}
+    dp_launches["filter_gt_scalar"] = (main["variants"]["filter_gt/scalar"]
+                                       + part_variants["filter_gt/scalar"])
+    dp_launches["filter_gt"] -= dp_launches["filter_gt_scalar"]
+    row_of["filter_gt_scalar"] = ("filter_gt", None)
+    headline = {"filter_gt": "f32", "filter_gt_scalar": "f32_unaligned",
+                "map_derived": "two_f32",
                 "fixed_point_encode": "f32", "probe_sorted": "16.7M_into_4.2M",
                 "hash64": "uniform", "pid_hist": "uniform_P8",
                 "rmsnorm": "2048x5120_bfloat16",
@@ -1748,7 +1826,7 @@ def main() -> int:
         own = [r for r in rows if r["kernel"] == kernel and r.get("variant") == variant]
         row = next(r for r in own if r["case"] == case)
         launches = (model_launches[name] if name in model_launches
-                    else main["launches"][name] + part_launches[name])
+                    else dp_launches[name])
         kernels.append(dict(
             name=name, route="cuda", source=MODEL_SOURCES.get(name, SOURCE),
             replaces=REPLACES[name], launches=launches,

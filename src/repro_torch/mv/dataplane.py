@@ -18,7 +18,8 @@ and nowhere else:
 * ``fixed_point_encode``  — AGG's ``rint(f64(v)·2^16)`` (times the Z-set
                             weight, wrapping mod 2^64);
 * ``probe_sorted``        — JOIN's searchsorted-left probe, clipped, with
-                            the hit test at the clipped position;
+                            the hit test at the clipped position, through
+                            a static search tree built for each call;
 * ``hash64``              — the splitmix64 finalizer, ``uint64`` out;
 * ``pid_hist``            — splitmix64 ``% P`` per row plus the P-bucket
                             histogram in one pass (``partition_ids``,
@@ -63,6 +64,7 @@ __all__ = [
 
 # Fixed-point quantum for AGG sums (mirrors tableops.AGG_QUANTUM).
 AGG_QUANTUM = 2.0**16
+_TWO_63 = 2.0**63
 
 _SPLITMIX_C1 = 0xBF58476D1CE4E5B9
 _SPLITMIX_C2 = 0x94D049BB133111EB
@@ -79,8 +81,11 @@ KERNELS = ("filter_gt", "map_derived", "fixed_point_encode", "probe_sorted",
            "hash64", "pid_hist")
 launches = native.LaunchCounts(KERNELS)
 # Launches of one instantiation within a kernel's count: the weighted
-# (Z-set) encode runs only on incremental rounds.
-variant_launches = native.LaunchCounts(("fixed_point_encode/weighted",))
+# (Z-set) encode runs only on incremental rounds; the scalar compare takes
+# columns off 16 bytes; the probe's tree build runs for an index of more
+# than one leaf (the build and the probe are one launch of probe_sorted).
+variant_launches = native.LaunchCounts(("fixed_point_encode/weighted",
+                                        "filter_gt/scalar", "probe_sorted/build"))
 
 
 def reset_launches() -> None:
@@ -92,12 +97,12 @@ def reset_launches() -> None:
 _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # Every C entry point of csrc/dataplane.cu and its arguments before the stream.
 native.declare("dataplane", {
-    "sc_filter_gt_f32": [_P, ctypes.c_float, _P, _N],
-    "sc_filter_gt_f64": [_P, ctypes.c_double, _P, _N],
-    "sc_filter_gt_i64": [_P, ctypes.c_double, _P, _N],
+    "sc_filter_gt_f32": [_P, ctypes.c_float, _P, _N, _I],
+    "sc_filter_gt_f64": [_P, ctypes.c_double, _P, _N, _I],
+    "sc_filter_gt_i64": [_P, ctypes.c_double, _P, _N, _I],
     "sc_map_derived": [_P, _I, _P, _I, _P, _N],
     "sc_fixed_point_encode": [_P, _I, _P, _P, _N],
-    "sc_probe_sorted": [_P, _N, _P, _P, _P, _N],
+    "sc_probe_sorted": [_P, _N, _P, _P, _P, _N, _P, _N],
     "sc_hash64": [_P, _P, _N],
     "sc_pid_hist": [_P, _N, _P, _P, _N],
 })
@@ -263,8 +268,12 @@ def _filter_cuda(col: torch.Tensor, threshold: float) -> torch.Tensor:
         fn, thr = "sc_filter_gt_f64", ctypes.c_double(float(threshold))
     else:
         fn, thr = "sc_filter_gt_i64", ctypes.c_double(float(threshold))
+    # 16 bytes at a time from a column on 16 bytes; a view off them
+    # (col[k:]) takes the scalar kernel
+    vec = col.data_ptr() % 16 == 0
     native.launch("filter_gt", fn, col.device, native.ptr(col), thr, native.ptr(out),
-                  ctypes.c_longlong(len(col)))
+                  ctypes.c_longlong(len(col)), int(vec),
+                  variant=None if vec else "scalar")
     return out
 
 
@@ -306,33 +315,37 @@ def _map_plain(a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
 
 
 _MAP_DTYPES = (torch.float32, torch.float64)
+# The kernel's input types (sc_map_derived's type codes); an int64 column
+# computes in float64, with softsign's |x| taken in wrapping int64 first.
+_MAP_TYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int64: 2}
 
 
 def _as_map_input(x: torch.Tensor) -> torch.Tensor:
-    """An integer column enters the kernel as float64, which is numpy's
-    promotion (|x| then differs only at INT64_MIN, where the integer abs
-    wraps)."""
-    return x if x.dtype in _MAP_DTYPES else x.to(torch.float64)
+    """A column of another integer type enters the kernel as float64."""
+    return x if x.dtype in _MAP_TYPE_CODES else x.to(torch.float64)
+
+
+def _map_width(dtype: torch.dtype) -> torch.dtype:
+    return dtype if dtype.is_floating_point else torch.float64
 
 
 def _map_cuda(a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     a = _as_map_input(a)
     b = None if b is None else _as_map_input(b)
-    _check_1d("map_derived a", a, _MAP_DTYPES)
+    _check_1d("map_derived a", a, tuple(_MAP_TYPE_CODES))
+    dtype = _map_width(a.dtype)
     if b is not None:
-        _check_1d("map_derived b", b, _MAP_DTYPES)
+        _check_1d("map_derived b", b, tuple(_MAP_TYPE_CODES))
         if len(b) != len(a):
             raise ValueError(f"map_derived: lengths differ ({len(a)} vs {len(b)})")
-        dtype = torch.promote_types(a.dtype, b.dtype)
-    else:
-        dtype = a.dtype
+        dtype = torch.promote_types(dtype, _map_width(b.dtype))
     out = torch.empty(len(a), dtype=dtype, device=a.device)
     if len(a) == 0:
         return out
-    a64 = int(a.dtype == torch.float64)
-    b64 = int(b is not None and b.dtype == torch.float64)
-    native.launch("map_derived", "sc_map_derived", a.device, native.ptr(a), a64,
-                  native.ptr(b), b64, native.ptr(out), ctypes.c_longlong(len(a)))
+    b_type = 0 if b is None else _MAP_TYPE_CODES[b.dtype]
+    native.launch("map_derived", "sc_map_derived", a.device, native.ptr(a),
+                  _MAP_TYPE_CODES[a.dtype], native.ptr(b), b_type, native.ptr(out),
+                  ctypes.c_longlong(len(a)))
     return out
 
 
@@ -351,7 +364,11 @@ def map_derived(a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
 
 def _encode_plain(values: torch.Tensor,
                   weights: torch.Tensor | None) -> torch.Tensor:
-    fp = torch.round(values.to(torch.float64) * AGG_QUANTUM).to(torch.int64)
+    r = torch.round(values.to(torch.float64) * AGG_QUANTUM)
+    # numpy's int64 conversion (x86) gives INT64_MIN for NaN and outside
+    # [-2^63, 2^63); spelled out, since the card's own conversion saturates
+    inside = (r >= -_TWO_63) & (r < _TWO_63)
+    fp = torch.where(inside, r, -_TWO_63).to(torch.int64)
     return fp if weights is None else fp * weights.to(torch.int64)
 
 
@@ -446,6 +463,25 @@ def _probe_plain(uniq: torch.Tensor,
     return uniq[posc] == probe, posc
 
 
+# The probe's search tree (csrc/dataplane.cu, kernel 4): leaves are runs of
+# TREE_KEYS keys of the index itself; internal nodes hold TREE_KEYS
+# separators over TREE_KEYS + 1 children, stored level by level, root first.
+TREE_KEYS = 8
+TREE_FAN = TREE_KEYS + 1
+
+
+def probe_tree_levels(n_keys: int) -> list[int]:
+    """Node counts of the probe tree's internal levels over an index of
+    ``n_keys`` keys, root first; empty when one leaf holds them all. The C
+    entry point computes the same and refuses a tree of another size."""
+    counts = []
+    m = -(-n_keys // TREE_KEYS)
+    while m > 1:
+        m = -(-m // TREE_FAN)
+        counts.append(m)
+    return counts[::-1]
+
+
 def _probe_cuda(uniq: torch.Tensor,
                 probe: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     _check_1d("probe_sorted uniq", uniq, (torch.int64,))
@@ -453,9 +489,14 @@ def _probe_cuda(uniq: torch.Tensor,
     n = len(probe)
     hit = torch.empty(n, dtype=torch.bool, device=probe.device)
     pos = torch.empty(n, dtype=torch.int64, device=probe.device)
+    nodes = sum(probe_tree_levels(len(uniq)))
+    # freed with the call (stream-ordered by the caching allocator)
+    tree = (torch.empty(nodes * TREE_KEYS, dtype=torch.int64, device=uniq.device)
+            if nodes else None)
     native.launch("probe_sorted", "sc_probe_sorted", probe.device, native.ptr(uniq),
                   ctypes.c_longlong(len(uniq)), native.ptr(probe), native.ptr(hit),
-                  native.ptr(pos), ctypes.c_longlong(n))
+                  native.ptr(pos), ctypes.c_longlong(n), native.ptr(tree),
+                  ctypes.c_longlong(nodes), variant="build" if nodes else None)
     return hit, pos
 
 

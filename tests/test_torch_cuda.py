@@ -58,20 +58,32 @@ def rand(n, dtype, seed, scale=3.0):
 
 @pytest.mark.parametrize("n", SIZES)
 def test_filter_kernel_matches_cpu(dev, n):
+    """Columns on 16 bytes take the vector kernel, views ``col[k:]`` off
+    them the scalar one (``filter_gt/scalar``); NaN and +-inf rows, and
+    lengths that leave a tail of rows past the last 16-byte vector."""
     for dtype in (np.float32, np.float64, np.int64):
-        col = rand(n, dtype, n, scale=100)
-        for thr in (0.1, -0.3):
-            dp.reset_launches()
-            same_bits(dp.filter_mask(col, thr), dp.filter_mask(col.to(dev), thr),
-                      f"{dtype} {thr}")
-            assert dp.launches["filter_gt"] == 1
+        col = rand(n + 3, dtype, n, scale=100)
+        if dtype is not np.int64:
+            col[: min(n, 3)] = torch.tensor([np.nan, np.inf, -np.inf][: min(n, 3)])
+            col[-2:] = torch.tensor([np.nan, -np.inf])
+        on_card = col.to(dev)
+        for k in range(4):
+            view, view_card = col[k:k + n], on_card[k:k + n]
+            scalar = (k * col.element_size()) % 16 != 0
+            for thr in (0.1, -0.3):
+                dp.reset_launches()
+                same_bits(dp.filter_mask(view, thr), dp.filter_mask(view_card, thr),
+                          f"{dtype} k={k} {thr}")
+                assert dp.launches["filter_gt"] == 1
+                assert dp.variant_launches["filter_gt/scalar"] == scalar, (dtype, k)
 
 
 @pytest.mark.parametrize("n", SIZES)
 def test_map_kernel_matches_cpu_every_dtype_pair(dev, n):
     pairs = [(np.float32, np.float32), (np.float32, np.float64),
              (np.float64, np.float32), (np.float64, np.float64),
-             (np.float64, np.int64), (np.float32, None), (np.float64, None),
+             (np.float64, np.int64), (np.float32, np.int64), (np.int64, np.int64),
+             (np.int64, np.float32), (np.float32, None), (np.float64, None),
              (np.int64, None)]
     for adt, bdt in pairs:
         a = rand(n, adt, n, 50)
@@ -93,6 +105,38 @@ def test_encode_kernel_matches_cpu(dev, n):
             same_bits(dp.fixed_point_encode(v, weights), got, f"{dtype}")
 
 
+def test_map_and_encode_kernels_at_int64_min_nan_inf_and_out_of_range(dev):
+    """The card's MAP takes an int64 column's |x| in wrapping int64, so
+    softsign(INT64_MIN) is 1.0 as in numpy; its encode gives INT64_MIN
+    where rint(v * 2^16) is NaN or outside [-2^63, 2^63), as x86 numpy
+    does, not the card's saturated conversion."""
+    x = torch.tensor([I64MIN, I64MIN + 1, I64MAX, -1, 0, 7])
+    a = torch.tensor([1.5, -2.0, 0.0, 3e38, -0.0, 1.0])
+    for args in ((x, None), (a, x), (a.double(), x), (x, x), (x, a)):
+        got = dp.map_derived(*(None if t is None else t.to(dev) for t in args))
+        same_bits(dp.map_derived(*args), got, str([getattr(t, "dtype", None) for t in args]))
+    assert dp.map_derived(x.to(dev), None)[0].item() == 1.0
+    v = torch.tensor([np.nan, np.inf, -np.inf, 2.0**47, -2.0**47, 1.5e14, -1.5e14,
+                      3e38, 1e300, -1e300, 1.0], dtype=torch.float64)
+    w = torch.arange(-5, len(v) - 5)
+    for vals in (v, v[:8].float()):
+        for weights in (None, w[:len(vals)]):
+            got = dp.fixed_point_encode(vals.to(dev),
+                                        None if weights is None else weights.to(dev))
+            same_bits(dp.fixed_point_encode(vals, weights), got, f"{vals.dtype}")
+    assert dp.fixed_point_encode(v.to(dev)).tolist() == [I64MIN] * 10 + [65536]
+
+
+# Index sizes for the probe's search tree (tests/test_torch_probe_tree.py
+# holds its CPU model at the same ones): one leaf of TREE_KEYS keys and its
+# edges, the edges of every leaf count that fills a level, and indexes
+# whose lower levels no longer fit in shared memory.
+B, FAN = dp.TREE_KEYS, dp.TREE_FAN
+TREE_SIZES = sorted({1, 2, B - 1, B, B + 1, 4097, 100_003, 1_000_003,
+                     *(FAN**k + d for k in (1, 2, 3) for d in (-1, 0, 1)),
+                     *(B * FAN**k + d for k in (1, 2, 3) for d in (-1, 0, 1))})
+
+
 @pytest.mark.parametrize("n", SIZES)
 def test_probe_kernel_matches_cpu(dev, n):
     rng = np.random.default_rng(n)
@@ -104,6 +148,25 @@ def test_probe_kernel_matches_cpu(dev, n):
         same_bits(dp.probe_sorted(u, probe),
                   dp.probe_sorted(u.to(dev), probe.to(dev)), f"L={len(u)}")
     same_bits(dp.first_occurrence(keys), dp.first_occurrence(keys.to(dev)))
+    # The tree's sizes: an index with gaps of 1-3 holding INT64_MIN and
+    # INT64_MAX (from two keys on), probed with both extremes, every key,
+    # every key +- 1 and n random values; one view off 16 bytes.
+    for L in TREE_SIZES:
+        idx = -2 * L + np.cumsum(rng.integers(1, 4, L)).astype(np.int64)
+        if L >= 2:
+            idx[[0, -1]] = [I64MIN, I64MAX]
+        with np.errstate(over="ignore"):
+            pv = np.concatenate([[I64MIN, I64MAX], idx, idx - 1, idx + 1,
+                                 rng.integers(-2 * L, 2 * L, n)])
+        u, p = torch.from_numpy(idx), torch.from_numpy(pv)
+        dp.reset_launches()
+        same_bits(dp.probe_sorted(u, p), dp.probe_sorted(u.to(dev), p.to(dev)), f"L={L}")
+        assert dp.launches["probe_sorted"] == 1
+        assert dp.variant_launches["probe_sorted/build"] == (L > B), L
+        if L > 1:
+            u_off = torch.from_numpy(np.concatenate([[I64MIN], idx]))
+            same_bits(dp.probe_sorted(u_off[1:], p),
+                      dp.probe_sorted(u_off.to(dev)[1:], p.to(dev)), f"L={L} off 16 bytes")
 
 
 @pytest.mark.parametrize("n", SIZES)

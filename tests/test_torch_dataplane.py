@@ -178,6 +178,42 @@ def test_map_derived_special_values():
                        dp.map_derived(tt(a), None), f"one {dt}")
 
 
+def test_map_derived_int64_min_wraps_like_numpy():
+    """An int64 column's softsign takes |x| in wrapping int64 as np.abs
+    does: at INT64_MIN |x| = INT64_MIN and the softsign is 1.0 (the card's
+    kernel takes the int64 column as it is, for this)."""
+    x = np.asarray([I64MIN, I64MIN + 1, I64MAX, -1, 0, 7], np.int64)
+    a32 = np.asarray([1.5, -2.0, 0.0, 3e38, -0.0, 1.0], np.float32)
+    with np.errstate(over="ignore"):
+        cases = [(x, None), (a32, x), (a32.astype(np.float64), x), (x, x),
+                 (x, a32)]
+        for a, b in cases:
+            ref = rdp.map_derived(a, b, impl="numpy")
+            assert_bitwise(ref, dp.map_derived(tt(a), None if b is None else tt(b)),
+                           f"{a.dtype} {None if b is None else b.dtype}")
+    assert dp.map_derived(tt(x), None)[0].item() == 1.0
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fixed_point_encode_nan_inf_and_out_of_range(dtype, weighted):
+    """Where rint(v * 2^16) is NaN or lies outside [-2^63, 2^63), numpy's
+    int64 conversion (x86) gives INT64_MIN; -2^47 * 2^16 = -2^63 is in
+    range and 2^47 * 2^16 = 2^63 is not."""
+    v = np.asarray([np.nan, np.inf, -np.inf, 2.0**47, -2.0**47, 1.5e14,
+                    -1.5e14, 3e38, 1.0], np.float64)
+    if dtype is np.float64:
+        v = np.concatenate([v, [1e300, -1e300, 2.0**47 - 2.0**-17]])
+    v = v.astype(dtype)
+    w = np.arange(-3, len(v) - 3, dtype=np.int64) if weighted else None
+    with np.errstate(invalid="ignore", over="ignore"):
+        ref = rdp.fixed_point_encode(v, w, impl="numpy")
+    got = dp.fixed_point_encode(tt(v), None if w is None else tt(w))
+    assert_bitwise(ref, got, f"encode {dtype}/{weighted}")
+    if not weighted:
+        assert got[:3].tolist() == [I64MIN] * 3 and got[4].item() == I64MIN
+
+
 @pytest.mark.parametrize("impl", KERNEL_IMPLS)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("weighted", [False, True])
