@@ -17,7 +17,8 @@ Phases, in order; any failure raises and exits non-zero:
              shapes (16,777,216 rows; a 4,194,304-key join index; P = 8
              partitions, and P = 4096 and 100,003 across the shared-memory
              histogram limit, on uniform and Zipf(1.3) keys), with edge
-             cases (a column off 16 bytes for the scalar compare, INT64_MIN
+             cases (f32 and f64 columns off 16 bytes: the vector compare
+             after its head; the scalar compare on the same column; INT64_MIN
              in an int64 MAP column, NaN, +-inf and values past 2^63 for
              the encode); RMSNorm (with and without residual, and the scalar
              kernel on rows off 16 bytes) and the
@@ -35,7 +36,9 @@ Phases, in order; any failure raises and exits non-zero:
              Mamba-2 serving prefill (b 4, 512 positions, 80 heads of 64,
              state 128; f32 and bf16), the long prefill (1 x 32768, bf16),
              a reduced s = chunk = 20 case, the impulse case and one case
-             against the exact recurrence; kernel, plain and library-call
+             against the exact recurrence, and its final state within 1e-4
+             of ||want|| of the plain version's and of the whole-prefix
+             closed form (f64); kernel, plain and library-call
              times from CUDA events, the kernel's and the library call's
              device time alone (``device_ms``: CUPTI under
              ``torch.profiler``), and the forward+backward pair against
@@ -79,8 +82,11 @@ Phases, in order; any failure raises and exits non-zero:
              64 greedy tokens each, then prefills one 32768-token prompt:
              RMSNorm must launch 129 times per forward, the SSD scan 64
              times per prefill, no flash kernel; a profiled prefill and
-             decode window; the oracle at full width in f32 and 2 layers
-             over 512 + 64 positions within 2e-2; reduced mamba2 card
+             decode window; the long prefill's profile must hold no scan
+             kernel but the SSD scan's (the decode state comes from the
+             scan, not a whole-prefix cumsum); the oracle at full width in
+             f32 and 2 layers over 512 + 64 positions within 2e-2; reduced
+             mamba2 card
              against CPU: the same greedy tokens, logits within 1e-4;
 9. train   — the training data (4 shards of 64 x 512 tokens, vocab
              50304, 4097-token rows) materialized by S/C on the card, then
@@ -471,9 +477,13 @@ def kernel_cases(torch, np, dp, dev, per_row):
     w = torch.randint(-3, 4, (n,), generator=gen, device=dev)
     w[:6] = torch.tensor([7, -7, 1 << 45, -(1 << 50), I64MAX, I64MIN], device=dev)
     thr = 0.1
-    # a view off 16 bytes: the scalar compare (filter_gt/scalar)
+    # views off 16 bytes (a head of 3 rows, and of 1): the vector compare
+    # after its head; the scalar kernel (filter_gt/scalar) timed on the same
+    # column
     f32_off = torch.empty(n + 1, device=dev)[1:]
     f32_off.copy_(f32)
+    f64_off = torch.empty(n + 1, device=dev, dtype=torch.float64)[1:]
+    f64_off.copy_(f64)
     F = torch.nn.functional
     edges = torch.tensor([I64MIN, I64MAX, -1, 0], device=dev)
     keys = torch.from_numpy(np.random.default_rng(12).integers(
@@ -495,6 +505,11 @@ def kernel_cases(torch, np, dp, dev, per_row):
          lambda: (dp._filter_plain(i64, -0.3),), None, n),
         ("filter_gt", "f32_unaligned", (f32_off,), lambda: (dp.filter_mask(f32_off, thr),),
          lambda: (dp._filter_plain(f32_off, thr),), lambda: (torch.gt(f32_off, thr),), n),
+        ("filter_gt", "f32_unaligned_scalar", (f32_off,),
+         lambda: (scalar_filter(torch, dp, f32_off, thr),),
+         lambda: (dp._filter_plain(f32_off, thr),), lambda: (torch.gt(f32_off, thr),), n),
+        ("filter_gt", "f64_unaligned", (f64_off,), lambda: (dp.filter_mask(f64_off, thr),),
+         lambda: (dp._filter_plain(f64_off, thr),), lambda: (torch.gt(f64_off, thr),), n),
         ("map_derived", "two_f32", (f32, b32),
          lambda: (dp.map_derived(f32, b32),), lambda: (dp._map_plain(f32, b32),),
          None, 5 * n),
@@ -531,6 +546,22 @@ def kernel_cases(torch, np, dp, dev, per_row):
     return cases
 
 
+def scalar_filter(torch, dp, col, thr):
+    """The scalar FILTER compare (``filter_gt/scalar``) on an f32 column,
+    through its C entry: the wrapper gives it only columns with no 16-byte
+    vector past their head, which no path here has, so this times it on the
+    main path's column."""
+    import ctypes
+
+    from repro_torch import native
+
+    out = torch.empty(len(col), dtype=torch.bool, device=col.device)
+    native.launch("filter_gt", "sc_filter_gt_f32", col.device, native.ptr(col),
+                  ctypes.c_float(thr), native.ptr(out), ctypes.c_longlong(len(col)), -1,
+                  variant="scalar")
+    return out
+
+
 def kernel_phase(torch, np, dp, dev, bw, inst_rate, per_row):
     """Hold every kernel against its plain version; time the cases. Returns
     per-case rows and the case each kernel reports on the kernels line (the
@@ -542,8 +573,14 @@ def kernel_phase(torch, np, dp, dev, bw, inst_rate, per_row):
 
 
 def kernel_row(torch, dp, bw, inst_rate, kernel, case, inputs, kfn, pfn, lfn, ops):
-    """One case of :func:`kernel_cases`' form, held bitwise and timed."""
+    """One case of :func:`kernel_cases`' form, held bitwise and timed; a
+    FILTER case logs which kernel (vector or scalar) it took."""
+    dp.reset_launches()
     got, want = kfn(), pfn()
+    took = ("scalar" if dp.variant_launches["filter_gt/scalar"] else "vector"
+            ) if kernel == "filter_gt" else ""
+    if took and took != ("scalar" if case.endswith("_scalar") else "vector"):
+        raise AssertionError(f"{kernel}/{case}: took the {took} kernel")
     torch.cuda.synchronize()
     if not bitwise_equal(torch, got, want):
         raise AssertionError(f"{kernel}/{case}: kernel differs from plain")
@@ -562,7 +599,7 @@ def kernel_row(torch, dp, bw, inst_rate, kernel, case, inputs, kfn, pfn, lfn, op
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         bytes=nbytes,
     )
-    log(f"kernel {kernel:<19} {case:<16} bitwise ok  max_abs_err={err} "
+    log(f"kernel {kernel:<19} {case:<16} {took:<6} bitwise ok  max_abs_err={err} "
         f"ms={row['ms']} device_ms={row['device_ms']} plain_ms={row['plain_ms']} "
         f"library_ms={row['library_ms']} library_device_ms={row['library_device_ms']} "
         f"bound_ms={row['bound_ms']} ({row['bound_by']}, {nbytes} B, bytes "
@@ -740,31 +777,33 @@ def model_kernel_cases(torch, dev):
 
 
 def ssd_ops(b, s, h, p, n, chunk, dtype_name) -> tuple:
-    """Operations of the SSD scan as (count, peak rate) pairs. Per (batch,
-    head, chunk of L), the causal mask leaves L(L+1)/2 (row, column) pairs:
-    L(L+1)n for C·Bᵀ and L(L+1)p for its masked product with x·dt; then 4Lnp
-    for C·Hᵀ and the state update. Every product takes an f32 operand (x·dt,
-    the decays, H) except C·Bᵀ, whose operands are the inputs themselves:
-    in bf16 the tensor cores form it exactly with f32 accumulation, so that
-    share counts at the bf16 rate."""
+    """Operations of the SSD scan as (count, peak rate) pairs, each product
+    at the rate of the operands the kernels give it. Per (batch, head,
+    chunk of L): L(L+1)p for the masked intra-chunk product (L(L+1)/2
+    causal pairs), 2Lnp for C·Hᵀ and 2Lnp for the state product; per
+    (batch, chunk), once for all heads (B and C have no head axis), L(L+1)n
+    for C·Bᵀ. bf16 inputs run C·Bᵀ, the intra-chunk product and C·Hᵀ on the
+    tensor cores (989 TFLOP/s); the state product, and every product of f32
+    inputs, is f32 FMAs (67 TFLOP/s)."""
     L = chunk
     per = b * h * (s // L)
-    cb = per * L * (L + 1) * n
-    rest = per * (L * (L + 1) * p + 4 * L * n * p)
+    state = per * 2 * L * n * p
+    rest = per * (L * (L + 1) * p + 2 * L * n * p) + b * (s // L) * L * (L + 1) * n
     if dtype_name == "bfloat16":
-        return ((rest, PEAK_FLOPS), (cb, PEAK_BF16_FLOPS))
-    return ((rest + cb, PEAK_FLOPS),)
+        return ((state, PEAK_FLOPS), (rest, PEAK_BF16_FLOPS))
+    return ((state + rest, PEAK_FLOPS),)
 
 
 def ssd_kernel_cases(torch, dev):
-    """Cases of the SSD scan in :func:`model_kernel_cases`' form: the bf16
-    and f32 serving prefill (4, 512, 80, 64, 128), the bf16 long prefill
-    (1, 32768, 80, 64, 128), a reduced case with s = chunk = 20, the
-    impulse of ``tests/kernels/test_ssd_scan.py`` and one case against the
-    exact recurrence (``ref.ssd_scan_sequential``). B and C are the halves
-    of one (b, s, 2n) tensor, as the model hands them. The operations are
-    :func:`ssd_ops`' causal count, at the f32 rate but for bf16's C·Bᵀ. No
-    single PyTorch call computes the scan: no library time."""
+    """Cases of the SSD scan in :func:`model_kernel_cases`' form, each
+    giving ``(y, h_final)``, the state after the last chunk: the bf16 and
+    f32 serving prefill (4, 512, 80, 64, 128), the bf16 long prefill (1,
+    32768, 80, 64, 128), a reduced case with s = chunk = 20, the impulse of
+    ``tests/kernels/test_ssd_scan.py`` and one case whose y is held against
+    the exact recurrence (``ref.ssd_scan_sequential``). B and C are the
+    halves of one (b, s, 2n) tensor, as the model hands them. The
+    operations are :func:`ssd_ops`'. No single PyTorch call computes the
+    scan: no library time."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -773,12 +812,13 @@ def ssd_kernel_cases(torch, dev):
     def add(name, x, dt, a, bm, cm, chunk, plain):
         b, s, h, p = x.shape
         chunk, dn, args = min(chunk, s), str(x.dtype).split(".")[1], (x, dt, a, bm, cm)
-        pfn = ((lambda: (ref.ssd_scan_chunked(*args, chunk=chunk),)) if plain == "chunked"
-               else (lambda: (ref.ssd_scan_sequential(*args),)))
+        chunked = lambda: ref.ssd_scan_chunked(*args, chunk=chunk, return_state=True)  # noqa: E731
+        pfn = (chunked if plain == "chunked"
+               else (lambda: (ref.ssd_scan_sequential(*args), chunked()[1])))
         out.append(dict(
             kernel="ssd_scan", dn=dn, inputs=args, pfn=pfn, lfn=None, lib_minus=None,
             case=f"{name}_L{chunk}{'' if plain == 'chunked' else '_vs_sequential'}_{dn}",
-            kfn=lambda: (ssd_scan(*args, chunk=chunk),),
+            kfn=lambda: ssd_scan(*args, chunk=chunk, return_state=True),
             ops=ssd_ops(b, s, h, p, bm.shape[-1], chunk, dn),
             samples=5 if s > MAMBA_PROMPT else 21))
 
@@ -835,6 +875,8 @@ def model_kernel_phase(torch, dev, bw):
             raise AssertionError(f"{kernel}/{case}: a row with no key must give dq = 0")
         if case.startswith("impulse") and not float(got[0][0, -1].abs().sum()) > 0:
             raise AssertionError(f"{kernel}/{case}: the state was lost across chunks")
+        if kernel == "ssd_scan":
+            hold_final_state(torch, case, c["inputs"], got[1], want[1])
         nbytes = sum(t.nbytes for t in c["inputs"]) + sum(t.nbytes for t in got)
         bytes_ms = nbytes / bw * 1e3
         ops_at = (c["ops"] if isinstance(c["ops"], tuple) else
@@ -872,6 +914,26 @@ def model_kernel_phase(torch, dev, bw):
     bwd_wrapper(torch, dev)
     flash_pair(torch, dev)
     return rows
+
+
+def hold_final_state(torch, case, inputs, got, plain):
+    """The scan's state after the last chunk (f32 whatever the inputs) within
+    ``REL_TOL["float32"]`` of ||want|| against its plain version's and
+    against the reference's whole-prefix closed form
+    (``ref.ssd_final_state``: ``_ssm_state_after_prefill``'s sum, in f64)."""
+    from repro_torch.kernels import ref
+
+    closed = ref.ssd_final_state(*inputs[:4])
+    rels = {}
+    for name, want in (("plain", plain), ("closed form", closed)):
+        rel, rms = rel_err(torch, (got,), (want,))
+        if got.dtype != torch.float32 or got.shape != want.shape or not rel <= REL_TOL["float32"]:
+            raise AssertionError(f"ssd_scan/{case}: final state {got.dtype} "
+                                 f"{tuple(got.shape)} vs {name}: ||got - want|| / ||want|| = "
+                                 f"{rel} beyond {REL_TOL['float32']} (RMS |want| {rms})")
+        rels[name] = rel
+    log(f"kernel ssd_scan final state {case}: rel_err vs plain {rels['plain']}, vs "
+        f"whole-prefix closed form {rels['closed form']} (limit {REL_TOL['float32']})")
 
 
 def bwd_wrapper(torch, dev):
@@ -1168,6 +1230,14 @@ def mamba_phase(torch, np, dev):
         f"{busy / 1e3:.3f} ms")
     for k, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"mamba:   {us / 1e3:9.4f} ms {count:8d}x  {k[:90]}")
+    scan_us = sum(us for k, (us, _) in by_name.items() if "ssd_" in k)
+    log(f"mamba: the SSD scan's three kernels {scan_us / 1e3:.4f} ms of the long prefill")
+    # the decode state comes from the scan: no whole-prefix cumsum (a torch
+    # scan kernel) is left on the prefill
+    stray = [k for k in by_name if "scan" in k.lower() and "ssd_" not in k]
+    if stray:
+        raise AssertionError(f"the long prefill launched scan kernels besides the SSD "
+                             f"scan's: {stray}")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     long_out, long_s = generate(long_prompt, 1)
@@ -1804,9 +1874,12 @@ def main() -> int:
     dp_launches = {k: main["launches"][k] + part_launches[k] for k in main["launches"]}
     dp_launches["filter_gt_scalar"] = (main["variants"]["filter_gt/scalar"]
                                        + part_variants["filter_gt/scalar"])
+    if dp_launches["filter_gt_scalar"]:   # every column of these paths has a vector
+        raise AssertionError(f"{dp_launches['filter_gt_scalar']} FILTER launches of the "
+                             "main and P=8 paths took the scalar compare")
     dp_launches["filter_gt"] -= dp_launches["filter_gt_scalar"]
     row_of["filter_gt_scalar"] = ("filter_gt", None)
-    headline = {"filter_gt": "f32", "filter_gt_scalar": "f32_unaligned",
+    headline = {"filter_gt": "f32", "filter_gt_scalar": "f32_unaligned_scalar",
                 "map_derived": "two_f32",
                 "fixed_point_encode": "f32", "probe_sorted": "16.7M_into_4.2M",
                 "hash64": "uniform", "pid_hist": "uniform_P8",

@@ -74,9 +74,16 @@ __device__ __forceinline__ double abs_(double a) { return fabs(a); }
 //    (ld/st.global.cs, evict first): each byte is touched once, and the
 //    lines it would displace from L2 are worth more to the next kernel.
 //    One block covers kThreads * kFilterUnroll vectors, with no grid-stride
-//    loop (no second wave of a capped grid). Block 0 takes the last
-//    n mod (rows a vector) rows one by one. A column off 16 bytes (a view
-//    col[k:]) takes the scalar kernel: one row a thread.
+//    loop (no second wave of a capped grid). A column off 16 bytes (a view
+//    col[k:], as partition slices are) starts with a head of rows before
+//    its first 16-byte boundary (1-3 for f32, 1 for f64 and int64): block
+//    0 compares the head and the tail past the last vector one row at a
+//    time, and the vectors start at the boundary. Their mask words land on
+//    their alignment because the wrapper hands an output view whose offset
+//    matches the column's (out + head on the word; faster than byte
+//    stores into a fresh allocation). The scalar kernel (one row a
+//    thread) takes only a column off its element size or one with fewer
+//    rows after the head than a vector holds.
 // ---------------------------------------------------------------------------
 template <typename T, typename C>
 __global__ void filter_gt_kernel(const T* __restrict__ x, C thr,
@@ -111,12 +118,12 @@ __device__ __forceinline__ typename MaskWord<16 / sizeof(T)>::type gt_word(uint4
 template <typename T, typename C, int U>
 __global__ void __launch_bounds__(kThreads)
 filter_gt_vec_kernel(const T* __restrict__ x, C thr, uint8_t* __restrict__ out,
-                     long long n) {
+                     long long n, int head) {
   constexpr int kRows = 16 / sizeof(T);
   using Word = typename MaskWord<kRows>::type;
-  const long long nv = n / kRows;
-  const uint4* __restrict__ xv = reinterpret_cast<const uint4*>(x);
-  Word* __restrict__ ov = reinterpret_cast<Word*>(out);
+  const long long nv = (n - head) / kRows;
+  const uint4* __restrict__ xv = reinterpret_cast<const uint4*>(x + head);
+  uint8_t* __restrict__ ob = out + head;
   const long long v0 = blockIdx.x * (long long)(kThreads * U) + threadIdx.x;
   uint4 v[U];
 #pragma unroll
@@ -125,10 +132,15 @@ filter_gt_vec_kernel(const T* __restrict__ x, C thr, uint8_t* __restrict__ out,
   }
 #pragma unroll
   for (int u = 0; u < U; ++u) {
-    if (v0 + u * kThreads < nv) __stcs(ov + v0 + u * kThreads, gt_word<T, C>(v[u], thr));
+    const long long j = v0 + u * kThreads;
+    if (j >= nv) continue;
+    __stcs(reinterpret_cast<Word*>(ob) + j, gt_word<T, C>(v[u], thr));
   }
-  const long long r = nv * kRows + v0;  // block 0 takes the tail rows
-  if (blockIdx.x == 0 && r < n) out[r] = static_cast<C>(x[r]) > thr;
+  if (blockIdx.x == 0) {  // the head and the tail rows
+    const long long r = head + nv * kRows + threadIdx.x;
+    if (r < n) out[r] = static_cast<C>(x[r]) > thr;
+    if (threadIdx.x < head) out[threadIdx.x] = static_cast<C>(x[threadIdx.x]) > thr;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -548,21 +560,24 @@ __global__ void pid_hist_kernel(const long long* __restrict__ keys,
   }
 }
 
-// vec: the vector kernel (x on 16 bytes, out on 4; a pointer off them is
-// refused), else the scalar kernel. The wrapper decides and counts which.
+// head >= 0: the vector kernel, with x + head on 16 bytes, out + head on
+// the mask word and at least one vector's rows after the head (else
+// refused); head < 0: the scalar kernel. The wrapper decides and counts
+// which.
 template <typename T, typename C>
-int filter_gt(const T* x, C thr, uint8_t* out, long long n, int vec,
+int filter_gt(const T* x, C thr, uint8_t* out, long long n, int head,
               cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (vec) {
-    if ((reinterpret_cast<uintptr_t>(x) & 15) || (reinterpret_cast<uintptr_t>(out) & 3)) {
+  if (head >= 0) {
+    constexpr int kRows = 16 / sizeof(T);
+    if ((reinterpret_cast<uintptr_t>(x + head) & 15) ||
+        (reinterpret_cast<uintptr_t>(out + head) % kRows) || head >= kRows || n - head < kRows) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const long long rows = static_cast<long long>(16 / sizeof(T));
     const long long per_block = static_cast<long long>(kThreads) * kFilterUnroll;
-    const long long blocks = (n / rows + per_block - 1) / per_block;
-    filter_gt_vec_kernel<T, C, kFilterUnroll><<<static_cast<unsigned>(blocks > 0 ? blocks : 1),
-                                                kThreads, 0, stream>>>(x, thr, out, n);
+    const long long blocks = ((n - head) / kRows + per_block - 1) / per_block;
+    filter_gt_vec_kernel<T, C, kFilterUnroll><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                                stream>>>(x, thr, out, n, head);
   } else {
     filter_gt_kernel<T, C><<<blocks_for(n), kThreads, 0, stream>>>(x, thr, out, n);
   }
@@ -598,19 +613,19 @@ int map_derived(const void* a, const void* b, int b_type, void* out, long long n
 
 extern "C" {
 
-int sc_filter_gt_f32(const float* x, float thr, uint8_t* out, long long n, int vec,
+int sc_filter_gt_f32(const float* x, float thr, uint8_t* out, long long n, int head,
                      cudaStream_t stream) {
-  return filter_gt<float, float>(x, thr, out, n, vec, stream);
+  return filter_gt<float, float>(x, thr, out, n, head, stream);
 }
 
-int sc_filter_gt_f64(const double* x, double thr, uint8_t* out, long long n, int vec,
+int sc_filter_gt_f64(const double* x, double thr, uint8_t* out, long long n, int head,
                      cudaStream_t stream) {
-  return filter_gt<double, double>(x, thr, out, n, vec, stream);
+  return filter_gt<double, double>(x, thr, out, n, head, stream);
 }
 
-int sc_filter_gt_i64(const long long* x, double thr, uint8_t* out, long long n, int vec,
+int sc_filter_gt_i64(const long long* x, double thr, uint8_t* out, long long n, int head,
                      cudaStream_t stream) {
-  return filter_gt<long long, double>(x, thr, out, n, vec, stream);
+  return filter_gt<long long, double>(x, thr, out, n, head, stream);
 }
 
 // a_type / b_type select each input's type (0 = f32, 1 = f64, 2 = int64);

@@ -42,7 +42,7 @@ native.declare("flash_attention_mma", {
     "sc_flash_bwd_dkv_mma": [_P] * 8 + [_I] * 6 + [_P, ctypes.c_float, _I, _I],
 })
 native.declare("ssd_scan", {
-    "sc_ssd_scan": [_P] * 6 + [_I] * 6 + [_P, _I],
+    "sc_ssd_scan": [_P] * 8 + [_I] * 8 + [_P, _I],
 })
 # dtype codes of the C interfaces
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

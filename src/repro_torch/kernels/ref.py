@@ -8,8 +8,9 @@ which the JAX package computes outside Pallas too. Every one computes in f32
 and returns the input's type, as the reference does. ``attention_bwd`` is
 the flash-attention backward's function; RMSNorm's gradient has no kernel
 (``kernels/rmsnorm.py:rmsnorm_bwd``). ``ssd_scan_chunked`` is the SSD
-chunked scan's function (``kernels/ssd_scan.py``) and
-``ssd_scan_sequential`` the exact recurrence it is held against.
+chunked scan's function (``kernels/ssd_scan.py``), composed of its three
+stages as the kernels split it, and ``ssd_scan_sequential`` the exact
+recurrence it is held against.
 """
 from __future__ import annotations
 
@@ -149,17 +150,29 @@ def ssd_scan_sequential(
     return torch.stack(ys, dim=1).to(x.dtype)
 
 
-def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                     bmat: torch.Tensor, cmat: torch.Tensor, chunk: int = 64
-                     ) -> torch.Tensor:
-    """The chunked SSD (``ref.py:111``), the function the SSD scan kernel
-    computes, in f32; returns x's type. Per chunk of ``chunk`` positions,
-    with ``cum`` the inclusive cumsum of ``dt·a``: the intra-chunk term
-    ``(C·Bᵀ ⊙ exp(cum_i - cum_j)[i >= j])·(x·dt)``, the chunk's state
-    ``Σ_j exp(total - cum_j)·(x·dt)_j B_jᵀ``, the running state H carried
-    across chunks, and the inter-chunk term ``(C ⊙ exp(cum))·Hᵀ``. The
-    intra-chunk product contracts j with a batched matmul per head, so no
-    (b, nc, L, L, h, p) tensor is formed."""
+def ssd_final_state(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    bmat: torch.Tensor) -> torch.Tensor:
+    """The state after a prefix consumed from an empty state in closed form
+    over the whole prefix, the reference's ``_ssm_state_after_prefill``
+    (``layers.py:491``): ``Σ_t exp(total - cum_t)·(x·dt)_t B_tᵀ`` (b, h, p,
+    n), with ``cum`` the cumsum of ``dt·a`` over the prefix. Computed in f64
+    and returned in f32: in f32 a whole-prefix cumsum loses the exponent's
+    low bits at long prefixes (cum reaches about -3000 at 32768 positions,
+    where an f32 ulp is 2.4e-4)."""
+    dtf = dt.double()
+    cum = torch.cumsum(dtf * a.double(), dim=1)             # (b, s, h)
+    w = torch.exp(cum[:, -1:, :] - cum)
+    xdt = x.double() * dtf[..., None]                       # (b, s, h, p)
+    return torch.einsum("bshp,bsn->bhpn", xdt * w[..., None], bmat.double()).float()
+
+
+def ssd_chunk_state(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    bmat: torch.Tensor, chunk: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 1 of the chunked SSD (kernel 1 of ``csrc/ssd_scan.cu``):
+    ``cum`` (b, nc, L, h), the inclusive cumsum of ``dt·a`` within each
+    chunk, and the chunk states ``S_c = Σ_j exp(total - cum_j)·(x·dt)_j
+    B_jᵀ`` (b, nc, h, p, n), in f32."""
     bsz, s, h, p = x.shape
     n = bmat.shape[-1]
     if chunk <= 0 or s % chunk:
@@ -168,35 +181,69 @@ def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     xf = x.float().reshape(bsz, nc, chunk, h, p)
     dtf = dt.float().reshape(bsz, nc, chunk, h)
     bf = bmat.float().reshape(bsz, nc, chunk, n)
-    cf = cmat.float().reshape(bsz, nc, chunk, n)
-    af = a.float()
-
-    cum = torch.cumsum(dtf * af, dim=2)                    # (b, nc, L, h)
+    cum = torch.cumsum(dtf * a.float(), dim=2)             # (b, nc, L, h)
     total = cum[:, :, -1, :]                                # (b, nc, h)
     cum_h = cum.permute(0, 1, 3, 2)                         # (b, nc, h, L)
-
-    # intra-chunk: masked exponents clamped to 0 before the exp (they can
-    # overflow to inf), as ref.py:132-134
-    rel = cum_h[..., :, None] - cum_h[..., None, :]         # (b, nc, h, L, L)
-    mask = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(mask, torch.exp(torch.where(mask, rel, 0.0)), 0.0)
-    cb = torch.einsum("bcin,bcjn->bcij", cf, bf)            # (b, nc, L, L)
-    xdt = xf * dtf[..., None]                               # (b, nc, L, h, p)
-    xdt_h = xdt.permute(0, 1, 3, 2, 4)                      # (b, nc, h, L, p)
-    y_intra = torch.matmul(cb[:, :, None] * decay, xdt_h)   # (b, nc, h, L, p)
-
-    # chunk states: S_c = Σ_j exp(total - cum_j)·(x·dt)_j B_jᵀ  (b, nc, h, p, n)
+    xdt_h = (xf * dtf[..., None]).permute(0, 1, 3, 2, 4)    # (b, nc, h, L, p)
     w = torch.exp(total[:, :, :, None] - cum_h)             # (b, nc, h, L)
     state = torch.matmul((xdt_h * w[..., None]).transpose(-1, -2), bf[:, :, None])
+    return cum, state
 
-    # inter-chunk recurrence: the running state before each chunk
-    hstate = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+
+def ssd_state_passing(state: torch.Tensor, total: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2 (kernel 2): from the chunk states (b, nc, h, p, n) and each
+    chunk's ``total`` (b, nc, h), the state before each chunk, ``H_{c-1}``
+    (zero before the first), and the state after the last,
+    ``H_c = exp(total_c)·H_{c-1} + S_c``, in f32."""
+    bsz, nc, h, p, n = state.shape
+    hstate = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=state.device)
     hpre = torch.empty_like(state)
     for c in range(nc):
         hpre[:, c] = hstate
         hstate = hstate * torch.exp(total[:, c])[..., None, None] + state[:, c]
+    return hpre, hstate
+
+
+def ssd_chunk_output(x: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+                     cmat: torch.Tensor, cum: torch.Tensor, hpre: torch.Tensor
+                     ) -> torch.Tensor:
+    """Stage 3 (kernel 3): ``y`` (b, s, h, p) in f32, the intra-chunk term
+    ``(C·Bᵀ ⊙ exp(cum_i - cum_j)[i >= j])·(x·dt)`` plus the inter-chunk
+    term ``(C ⊙ exp(cum))·H_{c-1}ᵀ``. The intra-chunk product contracts j
+    with a batched matmul per head, so no (b, nc, L, L, h, p) tensor is
+    formed."""
+    bsz, s, h, p = x.shape
+    nc, chunk = cum.shape[1], cum.shape[2]
+    n = bmat.shape[-1]
+    xf = x.float().reshape(bsz, nc, chunk, h, p)
+    dtf = dt.float().reshape(bsz, nc, chunk, h)
+    bf = bmat.float().reshape(bsz, nc, chunk, n)
+    cf = cmat.float().reshape(bsz, nc, chunk, n)
+    cum_h = cum.permute(0, 1, 3, 2)                         # (b, nc, h, L)
+    # masked exponents clamped to 0 before the exp (they can overflow to
+    # inf), as ref.py:132-134
+    rel = cum_h[..., :, None] - cum_h[..., None, :]         # (b, nc, h, L, L)
+    mask = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    decay = torch.where(mask, torch.exp(torch.where(mask, rel, 0.0)), 0.0)
+    cb = torch.einsum("bcin,bcjn->bcij", cf, bf)            # (b, nc, L, L)
+    xdt_h = (xf * dtf[..., None]).permute(0, 1, 3, 2, 4)    # (b, nc, h, L, p)
+    y_intra = torch.matmul(cb[:, :, None] * decay, xdt_h)   # (b, nc, h, L, p)
     # y_inter[i] = exp(cum_i)·Σ_n C[i, n]·H[p, n]
     y_inter = torch.matmul(cf[:, :, None], hpre.transpose(-1, -2)) * torch.exp(cum_h)[..., None]
+    return (y_intra + y_inter).permute(0, 1, 3, 2, 4).reshape(bsz, s, h, p)
 
-    y = (y_intra + y_inter).permute(0, 1, 3, 2, 4).reshape(bsz, s, h, p)
-    return y.to(x.dtype)
+
+def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     bmat: torch.Tensor, cmat: torch.Tensor, chunk: int = 64,
+                     return_state: bool = False
+                     ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD (``ref.py:111``), the function the SSD scan kernels
+    compute, in f32; returns ``y`` in x's type, and with ``return_state``
+    also the f32 state after the last chunk (b, h, p, n). It composes the
+    three stages: :func:`ssd_chunk_state`, :func:`ssd_state_passing` and
+    :func:`ssd_chunk_output`."""
+    cum, state = ssd_chunk_state(x, dt, a, bmat, chunk)
+    hpre, h_final = ssd_state_passing(state, cum[:, :, -1, :])
+    y = ssd_chunk_output(x, dt, bmat, cmat, cum, hpre).to(x.dtype)
+    return (y, h_final) if return_state else y

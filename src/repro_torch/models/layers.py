@@ -255,8 +255,9 @@ def ssm_forward(
     (``layers.py:419``; ``None`` without a cache). With a cache and s == 1,
     one step of the recurrence in f32 from the cached conv inputs and SSD
     state; otherwise the causal convs and the SSD scan (``ops.ssd_scan``:
-    the kernel on the card) over the whole sequence from an empty state,
-    and, with a cache, the state after it (:func:`_ssm_state_after_prefill`).
+    the kernels on the card) over the whole sequence from an empty state,
+    and, with a cache, the state after it, which the scan returns
+    (:func:`_ssm_state_after_prefill`).
     The casts are the reference's: a prefill's dt in the model's type
     before the scan, a decode step's in f32; d_skip·x added in f32 and cast;
     the gate ``y ⊙ silu(z)`` in the model's type before the RMSNorm over
@@ -295,30 +296,26 @@ def ssm_forward(
         xin = cx.reshape(b, s, h, hd)
         bmat, cmat = cbc[..., :n], cbc[..., n:]               # strided views
         dtv = F.softplus(dt_raw.float() + p.dt_bias).to(x.dtype)
-        y = ops.ssd_scan(xin, dtv, a, bmat, cmat)
+        if cache is None:
+            y = ops.ssd_scan(xin, dtv, a, bmat, cmat)
+        else:
+            y, hstate = ops.ssd_scan(xin, dtv, a, bmat, cmat, return_state=True)
+            new_cache = _ssm_state_after_prefill(cfg, xr, bc, hstate)
         y = y + (p.d_skip[None, None, :, None] * xin.float()).to(x.dtype)
         y = y.reshape(b, s, di)
-        if cache is not None:
-            new_cache = _ssm_state_after_prefill(cfg, p, xin, dtv, bmat, xr, bc)
 
     y = ops.rmsnorm(y * F.silu(z.float()).to(x.dtype), p.norm_w, eps=cfg.norm_eps)
     return y @ p.out_proj, new_cache
 
 
-def _ssm_state_after_prefill(cfg: ModelConfig, p: SSM, xin: torch.Tensor,
-                             dtv: torch.Tensor, bmat: torch.Tensor, xr: torch.Tensor,
-                             bc: torch.Tensor) -> dict:
+def _ssm_state_after_prefill(cfg: ModelConfig, xr: torch.Tensor, bc: torch.Tensor,
+                             hstate: torch.Tensor) -> dict:
     """The decode state after a prefix consumed from an empty state
     (``layers.py:491``): the last k - 1 conv inputs (zero-padded on the
-    left when the prefix is shorter) and ``Σ_t exp(total - cum_t)·(x·dt)_t
-    B_tᵀ`` over the whole prefix, in f32."""
-    b, s, h, hd = xin.shape
-    a = -torch.exp(p.a_log)
-    cum = torch.cumsum(dtv.float() * a[None, None, :], dim=1)   # (b, s, h)
-    w = torch.exp(cum[:, -1:, :] - cum)                          # (b, s, h)
-    xdt = xin.float() * dtv.float()[..., None]                   # (b, s, h, hd)
-    hstate = torch.matmul((xdt * w[..., None]).reshape(b, s, h * hd).transpose(1, 2),
-                          bmat.float()).reshape(b, h, hd, -1)
+    left when the prefix is shorter) and the scan's f32 state after the
+    last chunk. That state is the reference's ``Σ_t exp(total - cum_t)·
+    (x·dt)_t B_tᵀ`` over the whole prefix, summed chunk by chunk."""
+    s = xr.shape[1]
     k1 = cfg.ssm_conv_kernel - 1
 
     def tail(arr: torch.Tensor) -> torch.Tensor:

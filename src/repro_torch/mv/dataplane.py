@@ -82,8 +82,10 @@ KERNELS = ("filter_gt", "map_derived", "fixed_point_encode", "probe_sorted",
 launches = native.LaunchCounts(KERNELS)
 # Launches of one instantiation within a kernel's count: the weighted
 # (Z-set) encode runs only on incremental rounds; the scalar compare takes
-# columns off 16 bytes; the probe's tree build runs for an index of more
-# than one leaf (the build and the probe are one launch of probe_sorted).
+# only columns off their element size or too short for one 16-byte vector
+# after their head (``filter_head``); the probe's tree build runs for an
+# index of more than one leaf (the build and the probe are one launch of
+# probe_sorted).
 variant_launches = native.LaunchCounts(("fixed_point_encode/weighted",
                                         "filter_gt/scalar", "probe_sorted/build"))
 
@@ -257,10 +259,31 @@ def _filter_plain(col: torch.Tensor, threshold: float) -> torch.Tensor:
     return col.to(torch.float64) > float(threshold)
 
 
+def filter_head(addr: int, itemsize: int, n: int) -> int | None:
+    """How the vector compare splits a column of ``n`` rows of ``itemsize``
+    bytes at address ``addr``: the rows before its first 16-byte boundary,
+    which it compares one by one (0 for a column on 16 bytes), or ``None``
+    where the scalar kernel takes the column instead: an address off its
+    element size, or fewer rows after the head than one 16-byte vector
+    holds."""
+    if addr % itemsize:
+        return None
+    head = (-addr % 16) // itemsize
+    return head if n - head >= 16 // itemsize else None
+
+
 def _filter_cuda(col: torch.Tensor, threshold: float) -> torch.Tensor:
     _check_1d("filter_mask", col, (torch.float32, torch.float64, torch.int64))
-    out = torch.empty(len(col), dtype=torch.bool, device=col.device)
-    if len(col) == 0:
+    n = len(col)
+    head = filter_head(col.data_ptr(), col.element_size(), n)
+    if head:
+        # a view whose offset matches the column's, so that the vector
+        # kernel stores each mask word on its alignment
+        shift = (-head) % (16 // col.element_size())
+        out = torch.empty(n + 16, dtype=torch.bool, device=col.device)[shift:shift + n]
+    else:
+        out = torch.empty(n, dtype=torch.bool, device=col.device)
+    if n == 0:
         return out
     if col.dtype == torch.float32:
         fn, thr = "sc_filter_gt_f32", ctypes.c_float(float(np.float32(threshold)))
@@ -268,12 +291,9 @@ def _filter_cuda(col: torch.Tensor, threshold: float) -> torch.Tensor:
         fn, thr = "sc_filter_gt_f64", ctypes.c_double(float(threshold))
     else:
         fn, thr = "sc_filter_gt_i64", ctypes.c_double(float(threshold))
-    # 16 bytes at a time from a column on 16 bytes; a view off them
-    # (col[k:]) takes the scalar kernel
-    vec = col.data_ptr() % 16 == 0
     native.launch("filter_gt", fn, col.device, native.ptr(col), thr, native.ptr(out),
-                  ctypes.c_longlong(len(col)), int(vec),
-                  variant=None if vec else "scalar")
+                  ctypes.c_longlong(n), -1 if head is None else head,
+                  variant="scalar" if head is None else None)
     return out
 
 

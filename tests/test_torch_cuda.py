@@ -58,8 +58,10 @@ def rand(n, dtype, seed, scale=3.0):
 
 @pytest.mark.parametrize("n", SIZES)
 def test_filter_kernel_matches_cpu(dev, n):
-    """Columns on 16 bytes take the vector kernel, views ``col[k:]`` off
-    them the scalar one (``filter_gt/scalar``); NaN and +-inf rows, and
+    """Views ``col[k:]`` at every element offset within 16 bytes: the
+    vector kernel after a head of rows compared one by one, where at least
+    one 16-byte vector follows the head; the scalar kernel
+    (``filter_gt/scalar``) only where none does. NaN and +-inf rows, and
     lengths that leave a tail of rows past the last 16-byte vector."""
     for dtype in (np.float32, np.float64, np.int64):
         col = rand(n + 3, dtype, n, scale=100)
@@ -69,7 +71,8 @@ def test_filter_kernel_matches_cpu(dev, n):
         on_card = col.to(dev)
         for k in range(4):
             view, view_card = col[k:k + n], on_card[k:k + n]
-            scalar = (k * col.element_size()) % 16 != 0
+            scalar = dp.filter_head(view_card.data_ptr(), view_card.element_size(), n) is None
+            assert scalar == (n * col.element_size() < 16 + (-k * col.element_size()) % 16)
             for thr in (0.1, -0.3):
                 dp.reset_launches()
                 same_bits(dp.filter_mask(view, thr), dp.filter_mask(view_card, thr),
@@ -612,6 +615,7 @@ SSD_CASES = [  # b, s, h, p, n, chunk
     (1, 96, 3, 8, 8, 32),
     (1, 72, 2, 40, 100, 24),    # widths that are not powers of two
     (4, 512, 80, 64, 128, 64),  # mamba2-2.7b's serving prefill
+    (1, 4096, 80, 64, 128, 64),  # 64 chunks of one row
 ]
 
 
@@ -630,19 +634,52 @@ def ssd_inputs(b, s, h, p, n, dtype, seed=7):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
 def test_ssd_scan_kernel_matches_cpu(dev, b, s, h, p, n, chunk, dtype):
+    """y within the JAX tests' tolerance of the CPU path, and the state
+    after the last chunk (f32) within 1e-4 of ||want||; one launch a call."""
     x, dt, a, bc = ssd_inputs(b, s, h, p, n, dtype)
     ops.reset_launches()
     xd, dtd, ad, bcd = (t.to(dev) for t in (x, dt, a, bc))
-    got = ssd_scan(xd, dtd, ad, bcd[..., :n], bcd[..., n:], chunk=chunk)
+    got, got_state = ssd_scan(xd, dtd, ad, bcd[..., :n], bcd[..., n:], chunk=chunk,
+                              return_state=True)
     assert ops.launches["ssd_scan"] == 1
-    want = ssd_scan(x, dt, a, bc[..., :n], bc[..., n:], chunk=chunk)
+    want, want_state = ssd_scan(x, dt, a, bc[..., :n], bc[..., n:], chunk=chunk,
+                                return_state=True)
     close((want,), (got,), SSD_TOL[dtype], f"{(b, s, h, p, n, chunk)} {dtype}")
     g, w = got.cpu().float(), want.float()
     rel, rms = float((g - w).norm() / w.norm()), float(w.square().mean().sqrt())
     assert rel <= SSD_REL_TOL[dtype], f"||got - want|| / ||want|| = {rel}, RMS |want| {rms}"
+    assert got_state.dtype == torch.float32 and got_state.shape == (b, h, p, n)
+    state_rel = float((got_state.cpu() - want_state).norm() / want_state.norm())
+    assert state_rel <= SSD_REL_TOL[torch.float32], state_rel
     if s <= 128 and dtype == torch.float32:   # and the exact recurrence
         close((kref.ssd_scan_sequential(x, dt, a, bc[..., :n], bc[..., n:]),), (got,),
               SSD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("limit_chunks,plan", [(1, (1, 1)), (3, (1, 3)), (10, (2, 5))])
+def test_ssd_scan_workspace_groups_and_segments(dev, monkeypatch, limit_chunks, plan, dtype):
+    """With the workspace cut to ``limit_chunks`` chunks, the one C entry
+    runs the batch rows in groups and a row's chunks in segments, carrying
+    the state between segments: the same y and final state as the CPU path,
+    one launch."""
+    from repro_torch.kernels import ssd_scan as mod
+
+    b, s, h, p, n, chunk = 3, 320, 4, 16, 32, 64
+    bf16 = dtype == torch.bfloat16
+    x, dt, a, bc = ssd_inputs(b, s, h, p, n, dtype)
+    monkeypatch.setattr(mod, "WORKSPACE_BYTES",
+                        limit_chunks * 4 * mod.workspace_floats(h, p, n, chunk, bf16) + 64)
+    assert mod.workspace_plan(b, s, h, p, n, chunk, bf16) == plan
+    ops.reset_launches()
+    got, got_state = ssd_scan(*(t.to(dev) for t in (x, dt, a)), bc[..., :n].to(dev),
+                              bc[..., n:].to(dev), chunk=chunk, return_state=True)
+    assert ops.launches["ssd_scan"] == 1
+    want, want_state = ssd_scan(x, dt, a, bc[..., :n], bc[..., n:], chunk=chunk,
+                                return_state=True)
+    close((want,), (got,), SSD_TOL[dtype])
+    state_rel = float((got_state.cpu() - want_state).norm() / want_state.norm())
+    assert state_rel <= SSD_REL_TOL[torch.float32], state_rel
 
 
 def test_ssd_scan_carries_an_impulse_across_chunks(dev):
