@@ -3,15 +3,19 @@
 Hopper card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only kernels,train   # card and build, then these
 
-Phases, in order; any failure raises and exits non-zero:
+Phases, in order; any failure raises and exits non-zero (``--only`` runs the
+card and build phases and then the named ones of kernels, serve, mamba and
+train, and prints no kernels or result line):
 
 1. card    — the card's name and power limit (``nvidia-smi``);
 2. build   — ``nvcc`` for every CUDA source of the port, all in parallel,
              logging ``ptxas -v`` (registers, spills; each instantiation of
-             the tensor-core flash kernels by name); the SASS of the
-             tensor-core forward, dq and dk/dv kernels must hold bf16 HMMA
-             in their main loops;
+             the flash kernels by name); the SASS of the tensor-core
+             forward, dq and dk/dv kernels (dk/dv also at head dims 160
+             and 256) must hold bf16 HMMA in their main loops, and dk/dv at
+             160 and 256 must not spill;
 3. kernels — each hand-written kernel against its plain PyTorch version on
              the card: the data-plane kernels bitwise at the main path's
              shapes (16,777,216 rows; a 4,194,304-key join index; P = 8
@@ -25,15 +29,17 @@ Phases, in order; any failure raises and exits non-zero:
              flash-attention forward within the JAX kernel tests'
              tolerances at the serving path's shapes (rows of 5120;
              b 4, 32 query over 8 kv heads, 544 positions, head dim 160),
-             f32 and bf16, with ragged and sq != sk cases (bf16 forward, dq
-             and dk/dv up to head dim 256 / 256 / 128 on the tensor cores,
-             the rest on the CUDA cores); the two
+             f32 and bf16, with ragged and sq != sk cases (bf16 on the
+             tensor cores, f32 on the CUDA cores); the two
              flash-attention backward kernels (dq, dk/dv) within 2e-4 / 3e-2
              at the training path's shape (b 2, 32 over 32 heads, 4096
              positions, head dim 80, causal; the forward there too), the
              serving shape (GQA), a ragged non-causal, a causal sq != sk
-             and a keyless case; the SSD scan within 2e-4 / 5e-2 at the
-             Mamba-2 serving prefill (b 4, 512 positions, 80 heads of 64,
+             and a keyless case, and in bf16 the wide heads' training
+             shapes (stablelm-12b: b 2, 32 over 8 heads of 160; gemma-7b:
+             16 over 16 heads of 256; 4096 positions, causal); the SSD
+             scan within 2e-4 / 5e-2 at the Mamba-2 serving prefill (b 4,
+             512 positions, 80 heads of 64,
              state 128; f32 and bf16), the long prefill (1 x 32768, bf16),
              a reduced s = chunk = 20 case, the impulse case and one case
              against the exact recurrence, and its final state within 1e-4
@@ -97,7 +103,11 @@ Phases, in order; any failure raises and exits non-zero:
              the count the code predicts, step seconds, tokens/s, peak
              device memory, the final write-behind save, every flash
              launch on the tensor cores; one more step
-             under ``torch.profiler``. Then reduced stablelm-3b with GQA in
+             under ``torch.profiler``. Then stablelm-12b at full width
+             (d_model 5120, 32 over 8 heads of 160, d_ff 13824, vocab
+             100352) with its depth cut to 8 layers, the same way (its
+             final save too), so the wide bf16 dk/dv kernel runs on a
+             training path. Then reduced stablelm-3b with GQA in
              f32, card against CPU (two train steps agree; the CPU launches
              no kernel), and a bitwise checkpoint save/restore round trip;
 10. a JSON line listing every kernel and variant with its launches over
@@ -147,10 +157,15 @@ ROUND_KERNELS = ("filter_gt", "map_derived", "fixed_point_encode", "probe_sorted
 # instructions per row (read from the build) over the card's issue rate.
 HASH_SASS = {"hash64": "hash64_kernel", "pid_hist": "pid_hist_kernelILb1"}
 # SASS functions of the tensor-core flash kernels at the training path's
-# head dim (80, 16-byte copies), whose main loop must run on bf16 HMMA.
+# head dim (80, 16-byte copies), and of dk/dv at the wide heads' 160 and
+# 256 (two warps per 16 kv rows), whose main loops must run on bf16 HMMA.
 MMA_SASS = {"flash_fwd": "flash_fwd_mma_kernelILi80ELb1E",
             "flash_bwd_dq": "flash_bwd_dq_mma_kernelILi80ELb1E",
-            "flash_bwd_dkv": "flash_bwd_dkv_mma_kernelILi80ELb1E"}
+            "flash_bwd_dkv": "flash_bwd_dkv_mma_kernelILi80ELb1E",
+            "flash_bwd_dkv@160": "flash_bwd_dkv_mma_kernelILi160ELb1E",
+            "flash_bwd_dkv@256": "flash_bwd_dkv_mma_kernelILi256ELb1E"}
+# Instantiations that must not spill (ptxas -v): the split dk/dv kernels.
+NO_SPILL = ("flash_bwd_dkv_mma_kernelILi160E", "flash_bwd_dkv_mma_kernelILi256E")
 
 # Which Pallas kernel each port kernel replaces (JAX package, file:line).
 REPLACES = {
@@ -225,6 +240,14 @@ TRAIN_SEQ, TRAIN_ROWS, TRAIN_MICRO, TRAIN_STEPS = 4096, 4, 2, 2
 TRAIN_DATA = dict(n_shards=4, docs_per_shard=64, doc_len=512, vocab_size=50304,
                   seq_len=TRAIN_SEQ + 1)
 TRAIN_SHAPE = (2, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 80, True)  # one microbatch's attention
+# Then stablelm-12b at full width (d_model 5120, 32/8 heads of 160, d_ff
+# 13824, vocab 100352), its depth cut from 40 to 8 layers so that bf16
+# weights and gradients and f32 AdamW moments (~39 GB) fit beside the
+# activations: the path of the wide bf16 dk/dv kernel. The same rows, steps
+# and data (token ids below 50304, which its vocabulary holds).
+WIDE_TRAIN_ARCH, WIDE_TRAIN_LAYERS = "stablelm-12b", 8
+WIDE_TRAIN_SHAPE = (2, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 160, True)
+GEMMA_TRAIN_SHAPE = (2, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 256, True)   # gemma-7b's heads
 # Card against CPU on reduced stablelm-3b, f32 on both sides, sums in
 # another order (tests/test_torch_train.py's tolerances): one microbatch's
 # gradients before any update within 1e-5 + 1e-4·|g|; after two steps
@@ -331,6 +354,26 @@ def sass_per_row(lib_path, functions: dict[str, str]) -> dict[str, float]:
                 count += k - j + 1
         out[kernel] = count / loads
     return out
+
+
+def ptxas_entries(out: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes of every entry function in ``ptxas -v``
+    output, by mangled name."""
+    entries, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = entries[m.group(1)] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return entries
 
 
 def mma_main_loops(lib_path, functions: dict[str, str]) -> dict[str, dict[str, int]]:
@@ -732,6 +775,8 @@ def model_kernel_cases(torch, dev):
             (SERVE_BATCH, 32, 8, 100, 300, 160, True),   # causal, sq != sk
             (1, 32, 8, 8, 0, 160, True),                 # no key: every row masked
         ]
+        if dtype == torch.bfloat16:   # the wide heads' training shapes (dk/dv above 128)
+            shapes += [WIDE_TRAIN_SHAPE, GEMMA_TRAIN_SHAPE]
         for b, hq, hkv, sq, sk, d, causal in shapes:
             q = randn((b, hq, sq, d), dtype)
             k = randn((b, hkv, sk, d), dtype)
@@ -1309,7 +1354,7 @@ def predicted_train_launches(cfg, steps, n_micro) -> dict:
     again twice per layer in the recompute (the final norm lies outside the
     regions). The backward of RMSNorm is PyTorch ops: no launch. Every
     flash launch takes the variant the config's dtype and head dim call for
-    (bf16 at 80: the tensor cores)."""
+    (bf16: the tensor cores)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1324,20 +1369,98 @@ def predicted_train_launches(cfg, steps, n_micro) -> dict:
     return counts
 
 
+def train_run(torch, dev, root, dcfg, cfg) -> dict:
+    """``run_training`` of ``cfg`` on the card (``TRAIN_STEPS`` steps of
+    ``TRAIN_ROWS`` rows in microbatches of ``cfg.microbatch_size``, its final
+    write-behind save under ``root / "ckpt"``, removed after), then one more
+    step under ``torch.profiler``. Raises unless the launches are those
+    :func:`predicted_train_launches` gives, the losses and gradient norms are
+    finite and, for bf16, every flash launch ran on the tensor cores (checked
+    last, after the numbers are logged). Returns the launch counts."""
+    from repro_torch.data import BatchIterator
+    from repro_torch.kernels import ops
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.loop import LoopConfig, run_training
+
+    n_micro = TRAIN_ROWS // cfg.microbatch_size
+    metrics = []
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_training(
+        cfg, LoopConfig(steps=TRAIN_STEPS, batch_size=TRAIN_ROWS, ckpt_every=TRAIN_STEPS + 1,
+                        ckpt_dir=str(root / "ckpt"), data_dir=str(root / "data")),
+        dcfg, AdamWConfig(),
+        on_step=lambda step, m: metrics.append(
+            {"step": step, **{k: float(v) for k, v in m.items()}}),
+        device=dev)
+    run_s = time.perf_counter() - t0
+    launches = {**ops.launches, **ops.variant_launches}
+    peak = torch.cuda.max_memory_allocated()
+    want = predicted_train_launches(cfg, TRAIN_STEPS, n_micro)
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: training launches {launches}, predicted {want}")
+    if len(metrics) != TRAIN_STEPS or not all(
+            math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics):
+        raise AssertionError(f"{cfg.name}: training metrics not finite: {metrics}")
+    state = res["state"]
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, config counts {cfg.param_count()}")
+    state_bytes = sum(p.nbytes for p in state["params"].parameters()) + sum(
+        t.nbytes for key in ("m", "v") for t in state["opt"][key].values())
+    ckpt_bytes = sum(f.stat().st_size for f in (root / "ckpt").rglob("*") if f.is_file())
+    tokens = TRAIN_ROWS * TRAIN_SEQ
+    log(f"train: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.head_dim_} d_ff {cfg.d_ff} vocab "
+        f"{cfg.vocab_size} {cfg.dtype}, moments {cfg.opt_state_dtype}, remat "
+        f"{cfg.remat_policy}: {n_params} parameters, state {state_bytes} B")
+    for m, secs in zip(metrics, res["step_seconds"]):
+        log(f"train: {cfg.name} step {m['step']} loss {m['loss']} grad_norm {m['grad_norm']} "
+            f"lr {m['lr']} seconds {secs:.4f} tokens/s {tokens / secs:.1f}")
+    log(f"train: {cfg.name} {TRAIN_STEPS} steps x {TRAIN_ROWS} rows x {TRAIN_SEQ} tokens in "
+        f"{n_micro} microbatches: run_training {run_s:.3f}s, steps "
+        f"{sum(res['step_seconds']):.3f}s, max_memory_allocated {peak} B; final write-behind "
+        f"save {ckpt_bytes} B in {res['ckpt'].write_seconds:.3f}s; launches {launches} as "
+        "predicted")
+    del res
+    shutil.rmtree(root / "ckpt")
+
+    # -- one more step under the profiler
+    it = BatchIterator(root / "data", dcfg, TRAIN_ROWS, device=dev)
+    batch = it.next_batch()
+    step_fn = make_train_step(cfg, AdamWConfig(), global_rows=TRAIN_ROWS)
+    wall, by_name, _ = device_kernel_times(torch, lambda: step_fn(state, batch))
+    log_breakdown(f"{cfg.name} train step ({TRAIN_ROWS} x {TRAIN_SEQ} tokens)", wall, by_name,
+                  phase="train")
+    flash = {name: us for name, (us, _) in by_name.items() if "flash_" in name}
+    log(f"train: {cfg.name} profiled step: flash kernels {sum(flash.values()) / 1e3:.4f} ms "
+        "device time: " + "; ".join(f"{us / 1e3:.4f} ms {name[:60]}"
+                                    for name, us in sorted(flash.items(), key=lambda kv: -kv[1])))
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+    if cfg.dtype == "bfloat16" and not all(
+            launches[f"{k}/mma"] == launches[k] > 0
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+        raise AssertionError(f"{cfg.name}: bf16 flash launches not all on the tensor cores: "
+                             f"{launches}")
+    return launches
+
+
 def train_phase(torch, np, dev, root):
     """Materialize the training data by S/C on the card, run stablelm-3b at
-    full width and depth through ``run_training``, profile one more step,
-    then reduced GQA card against CPU and a checkpoint round trip. Returns
-    the launch counts of the ``run_training`` run."""
+    full width and depth and stablelm-12b at full width with
+    ``WIDE_TRAIN_LAYERS`` layers through :func:`train_run`, then reduced GQA
+    card against CPU and a checkpoint round trip. Returns the launch counts
+    of the two ``run_training`` runs, summed."""
     import copy
     import dataclasses as dc
 
     from repro_torch import configs, models
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.data import BatchIterator, DataConfig, materialize_dataset
+    from repro_torch.data import DataConfig, materialize_dataset
     from repro_torch.kernels import ops
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
-    from repro_torch.train.loop import LoopConfig, run_training
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1360,64 +1483,14 @@ def train_phase(torch, np, dev, root):
         f"{rep.peak_catalog_bytes:.0f} B within budget {dcfg.catalog_budget_bytes:.0f} B; "
         f"{time.perf_counter() - t0:.3f}s")
 
-    # -- stablelm-3b at full width and depth through run_training
+    # -- stablelm-3b at full width and depth, then stablelm-12b at full width
+    # with its depth cut, each through run_training
     cfg = dc.replace(configs.get_config(TRAIN_ARCH), microbatch_size=TRAIN_MICRO)
-    n_micro = TRAIN_ROWS // TRAIN_MICRO
-    metrics = []
-    ops.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = run_training(
-        cfg, LoopConfig(steps=TRAIN_STEPS, batch_size=TRAIN_ROWS, ckpt_every=TRAIN_STEPS + 1,
-                        ckpt_dir=str(root / "ckpt"), data_dir=str(root / "data")),
-        dcfg, AdamWConfig(),
-        on_step=lambda step, m: metrics.append(
-            {"step": step, **{k: float(v) for k, v in m.items()}}),
-        device=dev)
-    run_s = time.perf_counter() - t0
-    launches = {**ops.launches, **ops.variant_launches}
-    peak = torch.cuda.max_memory_allocated()
-    want = predicted_train_launches(cfg, TRAIN_STEPS, n_micro)
-    if launches != want:
-        raise AssertionError(f"training launches {launches}, predicted {want}")
-    if cfg.dtype == "bfloat16" and not all(
-            launches[f"{k}/mma"] == launches[k] > 0
-            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
-        raise AssertionError(f"bf16 training: flash launches not all on the tensor cores: "
-                             f"{launches}")
-    if len(metrics) != TRAIN_STEPS or not all(
-            math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics):
-        raise AssertionError(f"training metrics not finite: {metrics}")
-    state = res["state"]
-    n_params = sum(p.numel() for p in state["params"].parameters())
-    if n_params != cfg.param_count():
-        raise AssertionError(f"{n_params} parameters, config counts {cfg.param_count()}")
-    state_bytes = sum(p.nbytes for p in state["params"].parameters()) + sum(
-        t.nbytes for key in ("m", "v") for t in state["opt"][key].values())
-    ckpt_bytes = sum(f.stat().st_size for f in (root / "ckpt").rglob("*") if f.is_file())
-    tokens = TRAIN_ROWS * TRAIN_SEQ
-    log(f"train: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} heads "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.head_dim_} d_ff {cfg.d_ff} vocab "
-        f"{cfg.vocab_size} {cfg.dtype}, moments {cfg.opt_state_dtype}, remat "
-        f"{cfg.remat_policy}: {n_params} parameters, state {state_bytes} B")
-    for m, secs in zip(metrics, res["step_seconds"]):
-        log(f"train: step {m['step']} loss {m['loss']} grad_norm {m['grad_norm']} lr "
-            f"{m['lr']} seconds {secs:.4f} tokens/s {tokens / secs:.1f}")
-    log(f"train: {TRAIN_STEPS} steps x {TRAIN_ROWS} rows x {TRAIN_SEQ} tokens in {n_micro} "
-        f"microbatches: run_training {run_s:.3f}s, steps {sum(res['step_seconds']):.3f}s, "
-        f"max_memory_allocated {peak} B; final write-behind save {ckpt_bytes} B in "
-        f"{res['ckpt'].write_seconds:.3f}s; launches {launches} as predicted")
-
-    # -- one more step under the profiler
-    it = BatchIterator(root / "data", dcfg, TRAIN_ROWS, device=dev)
-    batch = it.next_batch()
-    step_fn = make_train_step(cfg, AdamWConfig(), global_rows=TRAIN_ROWS)
-    wall, by_name, _ = device_kernel_times(torch, lambda: step_fn(state, batch))
-    log_breakdown(f"train step ({TRAIN_ROWS} x {TRAIN_SEQ} tokens)", wall, by_name,
-                  phase="train")
-    del res, state, step_fn, batch
-    torch.cuda.empty_cache()
-    shutil.rmtree(root / "ckpt")
+    launches = train_run(torch, dev, root, dcfg, cfg)
+    wide = dc.replace(configs.get_config(WIDE_TRAIN_ARCH), n_layers=WIDE_TRAIN_LAYERS,
+                      microbatch_size=TRAIN_MICRO)
+    wide_launches = train_run(torch, dev, root, dcfg, wide)
+    launches = {k: launches[k] + wide_launches[k] for k in launches}
 
     # -- card against CPU: reduced stablelm-3b with GQA, f32
     t0 = time.perf_counter()
@@ -1659,7 +1732,55 @@ def check_finite(torch, name, table):
             raise AssertionError(f"{name}.{col} holds non-finite values")
 
 
+# The phases ``--only`` can run on their own (after the card and build
+# phases): those that need no other phase's state.
+ONLY_PHASES = ("kernels", "serve", "mamba", "train")
+
+
+def parse_only(argv) -> tuple[str, ...] | None:
+    """The phases ``--only a,b`` names (``--only build``: the card and build
+    phases alone), or None to run them all."""
+    if not argv:
+        return None
+    only = tuple(p for p in argv[1].split(",") if p != "build") if len(argv) == 2 else None
+    if argv[0] != "--only" or only is None or any(p not in ONLY_PHASES for p in only):
+        raise SystemExit(f"usage: chip_smoke.py [--only PHASE,...] (phases: build, "
+                         f"{', '.join(ONLY_PHASES)})")
+    return only
+
+
+def fresh_train_root() -> Path:
+    """An empty ``build/chip_smoke_train`` for the train phase (removed by it
+    at its end), with the disk's free bytes logged."""
+    root = HERE / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.parent.mkdir(parents=True, exist_ok=True)
+    log(f"disk free under {root.parent}: {shutil.disk_usage(root.parent).free:.3e} B")
+    return root
+
+
+def run_only(torch, np, dp, dev, bw, inst_rate, per_row, only, t_start) -> int:
+    """The phases of ``only``, in the script's order, each as the full run
+    gives it; no kernels line and no result line (they need every phase)."""
+    if "kernels" in only:
+        t_phase = time.perf_counter()
+        kernel_phase(torch, np, dp, dev, bw, inst_rate, per_row)
+        model_kernel_phase(torch, dev, bw)
+        log(f"phase kernels {time.perf_counter() - t_phase:.1f}s")
+    for name, run in (("serve", lambda: serve_phase(torch, np, dev)),
+                      ("mamba", lambda: mamba_phase(torch, np, dev)),
+                      ("train", lambda: train_phase(torch, np, dev, fresh_train_root()))):
+        if name in only:
+            t_phase = time.perf_counter()
+            run()
+            log(f"phase {name} {time.perf_counter() - t_phase:.1f}s")
+    log(f"--only {','.join(only) or 'build'}: total {time.perf_counter() - t_start:.1f}s; "
+        "no kernels line and no result without every phase")
+    return 0
+
+
 def main() -> int:
+    only = parse_only(sys.argv[1:])
     if not (HERE / "src" / "repro_torch" / "mv" / "dataplane.py").is_file():
         print("chip_smoke: the port (src/repro_torch) is not beside this script",
               file=sys.stderr)
@@ -1692,20 +1813,33 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
+    for name in native.SOURCES:   # build from the checkout's sources, ptxas -v logged
+        native.library_path(name).unlink(missing_ok=True)
     logs = native.build()
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f}s")
     for name, out in logs.items():
         for line in out.splitlines():
             # the tensor-core library's lines also name each instantiation
             if "registers" in line or "spill" in line or "error" in line or (
-                    name == "flash_attention_mma" and "Compiling entry" in line):
+                    name.startswith("flash_attention") and "Compiling entry" in line):
                 log(f"  {name}: {line.strip()}")
+    entries = ptxas_entries(logs["flash_attention_mma"])
+    for want in NO_SPILL:
+        found = {fn: e for fn, e in entries.items() if want in fn}
+        if not found or any(e.get("spill_stores", 1) or e.get("spill_loads", 1)
+                            for e in found.values()):
+            raise AssertionError(f"{want}: spills or not built: {found}")
+        log(f"ptxas: {want}*: {list(found.values())} (no spills)")
     inst_rate = issue_rate(torch)
     per_row = sass_per_row(native.library_path("dataplane"), HASH_SASS)
     log(f"issue rate {inst_rate:.4e} instructions/s; SASS instructions per row "
         f"{per_row}")
     mma_loops = mma_main_loops(native.library_path("flash_attention_mma"), MMA_SASS)
-    log(f"tensor-core flash kernels, main loop (SASS, head dim 80): {mma_loops}")
+    log(f"tensor-core flash kernels, main loop (SASS, head dim 80; dk/dv also 160 and "
+        f"256): {mma_loops}")
+
+    if only is not None:
+        return run_only(torch, np, dp, dev, bw, inst_rate, per_row, only, t_start)
 
     # -- 3. kernels -------------------------------------------------------------
     t_phase = time.perf_counter()
@@ -1837,11 +1971,7 @@ def main() -> int:
 
     # -- 9. training ----------------------------------------------------------------
     t_phase = time.perf_counter()
-    train_root = HERE / "build" / "chip_smoke_train"
-    shutil.rmtree(train_root, ignore_errors=True)
-    log(f"disk free under {train_root.parent}: "
-        f"{shutil.disk_usage(train_root.parent).free:.3e} B")
-    train_launches = train_phase(torch, np, dev, train_root)
+    train_launches = train_phase(torch, np, dev, fresh_train_root())
     log(f"phase train {time.perf_counter() - t_phase:.1f}s")
 
     # -- 10. kernels line -----------------------------------------------------------

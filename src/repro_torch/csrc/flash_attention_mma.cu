@@ -5,10 +5,9 @@
 //   _fwd_kernel     (:41,  pallas_call at :133) -> flash_fwd_mma_kernel
 //   _bwd_dq_kernel  (:167, pallas_call at :289) -> flash_bwd_dq_mma_kernel
 //   _bwd_dkv_kernel (:209, pallas_call at :303) -> flash_bwd_dkv_mma_kernel
-// for bf16 q, k, v (and do) at head widths d <= 256 (forward, dq) and
-// d <= 128 (dk/dv). f32 inputs, and bf16 dk/dv at d > 128, take the CUDA-core
-// kernels of flash_attention.cu; the choice is made by the wrapper
-// (kernels/flash_attention.py: variant) from the dtype and d alone. The
+// for bf16 q, k, v (and do) at every head width d <= 256. f32 inputs take
+// the CUDA-core kernels of flash_attention.cu; the choice is made by the
+// wrapper (kernels/flash_attention.py: variant) from the dtype alone. The
 // interface, the masking and the outputs are those of flash_attention.cu:
 // q, do (b, hq, sq, d) and k, v (b, hkv, sk, d) with their own batch, head
 // and row strides (rows contiguous); o, dq (b, hq, sq, d), dk, dv (b, hkv,
@@ -42,9 +41,8 @@
 // cores through ldmatrix. Shared rows are DP + 8 bf16 long, DP = d rounded
 // up to a multiple of 16 (the mma depth): the row stride is then an odd
 // multiple of 16 bytes, so ldmatrix's eight row addresses fall in distinct
-// banks. d = 80 runs at 80. Widths: the forward and dq instantiate DP in
-// {16, 32, ..., 128, 160, 256} (a d in (160, 256) runs at 256), dkv DP in
-// {16, ..., 128}.
+// banks. d = 80 runs at 80. Widths: all three instantiate DP in
+// {16, 32, ..., 128, 160, 256} (a d in (160, 256) runs at 256).
 //
 // - forward: one block per (batch, query head, BM query rows), blocks
 //   ordered so that the query tiles with the most kv tiles start first
@@ -73,10 +71,18 @@
 //   Pᵀ = exp(Sᵀ·scale − lse) and dSᵀ = Pᵀ ⊙ (dPᵀ − delta)·scale in
 //   registers, and adds Pᵀ·dO to dV and dSᵀ·Q to dK (dO and Q through
 //   ldmatrix.trans). dK and dV (DP/2 f32 each per thread) stay in
-//   registers, 248 of them at DP 128: at DP 160 the two would not fit,
-//   which is why dkv stops at 128. K's and V's fragments are re-read from
-//   shared memory (kept in registers they cost occupancy and gained
-//   nothing at DP 80).
+//   registers, 248 of them at DP 128. K's and V's fragments are re-read
+//   from shared memory (kept in registers they cost occupancy and gained
+//   nothing at DP 80). Above DP 128 the two accumulators would not fit, so
+//   the block takes 8 warps, two per 16 kv rows, that split the work by
+//   columns: per 64-query step each warp of a pair computes Sᵀ and dPᵀ for
+//   32 of the query columns, writes its Pᵀ and dSᵀ (rounded to bf16, as
+//   they are for their second product anyway) into the pair's 16 x 64
+//   exchange tile in shared memory, meets its partner at a named barrier,
+//   and then adds Pᵀ·dO and dSᵀ·Q over all 64 queries into its own DP/2
+//   columns of dV and dK: DP/4 f32 each a thread, 80 / 128 for both at DP
+//   160 / 256. The exchange tile is reused by the next step only after the
+//   block's barrier at that step's start.
 // - dq: the forward's structure with a second score product and no online
 //   softmax, since lse and delta are known. One block per (batch, query
 //   head, BM query rows), the longest causal rows first; Q and dO stay in
@@ -107,7 +113,8 @@
 //     96: 168, 112: 215, 128: 231 (104,448 B), 160: 164 (86,016 B),
 //     256: 246 (135,168 B);
 //   dkv DP 16: 95, 32: 122, 48: 128, 64: 165, 80: 166 (68,608 B),
-//     96: 171, 112: 241, 128: 248 (105,472 B).
+//     96: 171, 112: 241, 128: 248 (105,472 B); 8 warps: 160: 170
+//     (148,480 B), 256: 245 (222,208 B).
 //
 // Interface: plain extern "C" functions loaded with ctypes. Each launches on
 // the caller's stream, never synchronises, and returns cudaGetLastError().
@@ -126,9 +133,10 @@ using namespace sc_mma;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // kv rows per dkv block (16 per warp)
+constexpr int kRows = 16 * kWarps;  // kv rows per dkv block (16 per warp or pair of warps)
 constexpr int kBQ = 64;             // query rows per streamed dkv tile
 constexpr int kSub = 32;            // score columns of one dkv or dq sub-tile in registers
+constexpr int kLDX = kBQ + 8;       // row stride of a dkv pair's Pᵀ / dSᵀ exchange tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -154,10 +162,23 @@ constexpr size_t fwd_smem_bytes() {  // Q, then two stages of K and of V
   return sizeof(bf16) * static_cast<size_t>(fwd_rows<DP>() + 4 * fwd_bn<DP>()) * (DP + 8);
 }
 
+// dkv's split (see the header): warps per 16 kv rows, each keeping 1 / SPLIT
+// of dK's and dV's columns, and the query columns of one score sub-tile of
+// a row group (all of a 64-row step when split).
 template <int DP>
-constexpr size_t dkv_smem_bytes() {  // K, V, two stages of Q and dO, of lse and delta
+__host__ __device__ constexpr int dkv_split() { return DP > 128 ? 2 : 1; }
+template <int DP>
+__host__ __device__ constexpr int dkv_threads() { return kThreads * dkv_split<DP>(); }
+template <int DP>
+__host__ __device__ constexpr int dkv_sub() { return dkv_split<DP>() > 1 ? kBQ : kSub; }
+
+template <int DP>
+constexpr size_t dkv_smem_bytes() {  // K, V, two stages of Q and dO, of lse and delta,
+                                     // and when split each pair's Pᵀ and dSᵀ tiles
   return sizeof(bf16) * static_cast<size_t>(2 * kRows + 4 * kBQ) * (DP + 8) +
-         sizeof(float) * 4 * kBQ;
+         sizeof(float) * 4 * kBQ +
+         (dkv_split<DP>() > 1 ? sizeof(bf16) * static_cast<size_t>(kRows / 16) * 2 * 16 * kLDX
+                              : 0);
 }
 
 // dq's tiles: MT 16-row m-tiles a warp (two up to DP 80, where two dQ
@@ -181,22 +202,23 @@ constexpr size_t dq_smem_bytes() {  // Q, dO, then two stages of K and of V
 
 // Rows [r0, r0 + ROWS) of one head (row stride rs elements), columns
 // [0, DP), into a ROWS x DP tile of row stride DP + 8; zeros at rows >= nrows
-// and columns >= d. ALIGNED: 16-byte cp.async copies (the caller commits
-// and waits); otherwise element loads and plain stores.
-template <bool ALIGNED, int ROWS, int DP>
+// and columns >= d, by the block's NT threads. ALIGNED: 16-byte cp.async
+// copies (the caller commits and waits); otherwise element loads and plain
+// stores.
+template <bool ALIGNED, int ROWS, int DP, int NT = kThreads>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long rs, int r0,
                                           int nrows, int d) {
   constexpr int LD = DP + 8;
   if constexpr (ALIGNED) {
     constexpr int kChunks = DP / 8;  // 16-byte chunks per row
-    for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += NT) {
       const int r = i / kChunks, c = (i - r * kChunks) * 8;
       const bool in = r0 + r < nrows && c < d;
       cp_async_16(dst + r * LD + c, in ? src + (r0 + r) * rs + c : src,
                   in ? 2 * min(8, d - c) : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < ROWS * DP; i += kThreads) {
+    for (int i = threadIdx.x; i < ROWS * DP; i += NT) {
       const int r = i / DP, c = i - r * DP;
       dst[r * LD + c] = (r0 + r < nrows && c < d) ? src[(r0 + r) * rs + c]
                                                   : __float2bfloat16_rn(0.f);
@@ -205,11 +227,12 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long 
 }
 
 // Rows row0 and row0 + 8 of a contiguous (rows, d) bf16 output from an
-// accumulator in C layout (columns 8n + 2t, +1), each row scaled by its
-// factor; rows >= nrows and columns >= d are not written.
+// accumulator in C layout (columns col0 + 8n + 2t, +1), each row scaled by
+// its factor; rows >= nrows and columns >= d are not written.
 template <int NO>
 __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[NO][4], int row0,
-                                           int nrows, int d, float f0, float f1, int t) {
+                                           int nrows, int d, float f0, float f1, int t,
+                                           int col0 = 0) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 8 * half;
@@ -218,7 +241,7 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[NO][4],
     const float f = half ? f1 : f0;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      const int col = 8 * n + 2 * t;
+      const int col = col0 + 8 * n + 2 * t;
       const float x0 = acc[n][2 * half] * f, x1 = acc[n][2 * half + 1] * f;
       if ((d & 1) == 0 && col < d) {  // col even, d even: a 4-byte aligned pair
         *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(x0, x1);
@@ -440,17 +463,22 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DP, bool ALIGNED>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(dkv_threads<DP>())
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv,
                          int hq, int group, int sq, int sk, int d, Strides st, float scale,
                          int causal) {
+  constexpr int SPLIT = dkv_split<DP>();  // warps per 16 kv rows
+  constexpr int NT = dkv_threads<DP>();
+  constexpr int SUB = dkv_sub<DP>();      // query columns of a row group's sub-tile
+  constexpr int WC = SUB / SPLIT;         // ... of one warp's Sᵀ
+  static_assert(SPLIT == 1 || SUB == kBQ, "a split block exchanges once per step");
   constexpr int LD = DP + 8;
-  constexpr int KD = DP / 16;   // depth steps of K·Qᵀ and V·dOᵀ
-  constexpr int NO = DP / 8;    // 8-column tiles of dK, dV
-  constexpr int NS = kSub / 8;  // 8-column tiles of a Sᵀ sub-tile
+  constexpr int KD = DP / 16;          // depth steps of K·Qᵀ and V·dOᵀ
+  constexpr int NO = DP / 8 / SPLIT;   // 8-column tiles of this warp's dK, dV columns
+  constexpr int NS = WC / 8;           // 8-column tiles of this warp's Sᵀ
   extern __shared__ uint4 smem_u4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_u4);
   bf16* Vs = Ks + kRows * LD;
@@ -461,11 +489,15 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int grp = warp / SPLIT, half = warp - grp * SPLIT;  // row group; share of the columns
+  // the row group's Pᵀ and dSᵀ exchange tiles, 16 x kLDX bf16 each (split only)
+  bf16* Xp = reinterpret_cast<bf16*>(Es + 2 * kBQ) + grp * 2 * 16 * kLDX;
+  bf16* Xd = Xp + 16 * kLDX;
   const int hkv = hq / group;
   const int b = blockIdx.x / hkv, hk = blockIdx.x - b * hkv;
   const int k0 = blockIdx.y * kRows;
-  load_tile<ALIGNED, kRows, DP>(Ks, k + b * st.v[3] + hk * st.v[4], st.v[5], k0, sk, d);
-  load_tile<ALIGNED, kRows, DP>(Vs, v + b * st.v[6] + hk * st.v[7], st.v[8], k0, sk, d);
+  load_tile<ALIGNED, kRows, DP, NT>(Ks, k + b * st.v[3] + hk * st.v[4], st.v[5], k0, sk, d);
+  load_tile<ALIGNED, kRows, DP, NT>(Vs, v + b * st.v[6] + hk * st.v[7], st.v[8], k0, sk, d);
 
   // causal: query tiles wholly above this block's first kv row see none of it
   const int qstart = causal ? (k0 / kBQ) * kBQ : 0;
@@ -474,12 +506,12 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_step = [&](int i, int stage) {
     const int gi = i / nq, q0 = qstart + (i - gi * nq) * kBQ;
     const int h = hk * group + gi;
-    load_tile<ALIGNED, kBQ, DP>(Qs + stage * kBQ * LD, q + b * st.v[0] + h * st.v[1],
-                                st.v[2], q0, sq, d);
-    load_tile<ALIGNED, kBQ, DP>(Os + stage * kBQ * LD, dout + b * st.v[9] + h * st.v[10],
-                                st.v[11], q0, sq, d);
+    load_tile<ALIGNED, kBQ, DP, NT>(Qs + stage * kBQ * LD, q + b * st.v[0] + h * st.v[1],
+                                    st.v[2], q0, sq, d);
+    load_tile<ALIGNED, kBQ, DP, NT>(Os + stage * kBQ * LD, dout + b * st.v[9] + h * st.v[10],
+                                    st.v[11], q0, sq, d);
     const long long r0 = (static_cast<long long>(b) * hq + h) * sq + q0;
-    for (int i2 = threadIdx.x; i2 < 2 * kBQ; i2 += kThreads) {
+    for (int i2 = threadIdx.x; i2 < 2 * kBQ; i2 += NT) {
       const int r = i2 % kBQ;
       const float* src = (i2 < kBQ ? lse : delta) + r0;
       float* dst = (i2 < kBQ ? Ls : Es) + stage * kBQ + r;
@@ -490,8 +522,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (total > 0) load_step(0, 0);
   cp_async_commit();  // K, V and the first step
 
-  const int wrow = warp * 16;
-  const int kr0 = k0 + wrow;  // this warp's first kv row
+  const int wrow = grp * 16;
+  const int kr0 = k0 + wrow;          // this warp's first kv row
+  const int col0 = half * (DP / SPLIT);  // this warp's first dK, dV column
   const float scale_log2 = scale * kLog2e;
   float dka[NO][4], dva[NO][4];
 #pragma unroll
@@ -502,7 +535,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < total; ++i) {
     const int stage = i & 1;
     cp_async_wait<0>();  // this step's copies, the only ones in flight
-    __syncthreads();     // ... seen by every warp, and every warp is done with the other stage
+    __syncthreads();     // ... seen by every warp, and every warp is done with the other
+                         // stage and with the exchange tiles
     if (i + 1 < total) {  // the next step into the other stage, behind this one's math
       load_step(i + 1, stage ^ 1);
       cp_async_commit();
@@ -513,9 +547,11 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* Lt = Ls + stage * kBQ;
     const float* Et = Es + stage * kBQ;
 #pragma unroll
-    for (int c0 = 0; c0 < kBQ; c0 += kSub) {
+    for (int c0 = 0; c0 < kBQ; c0 += SUB) {
       const int qa = q0 + c0;  // the sub-tile's first query row
-      if (qa >= sq || (causal && qa + kSub - 1 < kr0)) continue;  // no pair survives
+      // no pair survives (the same for every warp of the row group)
+      if (qa >= sq || (causal && qa + SUB - 1 < kr0)) continue;
+      const int cw = c0 + half * WC;  // this warp's first score column in the tile
       float s[NS][4], dp[NS][4];
 #pragma unroll
       for (int j = 0; j < NS; ++j)
@@ -528,7 +564,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         ldmatrix_x4(av, Vs + (wrow + a_row(lane)) * LD + kk * 16 + a_col(lane));
 #pragma unroll
         for (int j = 0; j < NS; j += 2) {
-          const int off = (c0 + j * 8 + b_row(lane)) * LD + kk * 16 + b_col(lane);
+          const int off = (cw + j * 8 + b_row(lane)) * LD + kk * 16 + b_col(lane);
           uint32_t bq[4], bo[4];
           ldmatrix_x4(bq, Qt + off);
           ldmatrix_x4(bo, Ot + off);
@@ -538,12 +574,12 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           mma_bf16(dp[j + 1], av, bo[2], bo[3]);
         }
       }
-      const bool masked = (causal && kr0 + 15 > qa) || qa + kSub > sq;
+      const bool masked = (causal && kr0 + 15 > qa) || qa + SUB > sq;
 #pragma unroll
       for (int j = 0; j < NS; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = c0 + j * 8 + 2 * t + (e & 1);  // the query's row in the tile
+          const int c = cw + j * 8 + 2 * t + (e & 1);  // the query's row in the tile
           float p = exp2f(fmaf(s[j][e], scale_log2, -Lt[c] * kLog2e));  // lse = +inf: 0
           if (masked) {
             const int kv = kr0 + g + 8 * (e >> 1);
@@ -552,14 +588,31 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           dp[j][e] = p * (dp[j][e] - Et[c]) * scale;  // dSᵀ
           s[j][e] = p;                                 // Pᵀ
         }
+      if constexpr (SPLIT > 1) {  // the pair's Pᵀ and dSᵀ, rounded to bf16, meet in Xp, Xd
 #pragma unroll
-      for (int kk = 0; kk < kSub / 16; ++kk) {  // dV += Pᵀ·dO, dK += dSᵀ·Q in bf16
+        for (int j = 0; j < NS; ++j) {
+          const int col = half * WC + j * 8 + 2 * t;
+          *reinterpret_cast<uint32_t*>(Xp + g * kLDX + col) = pack_bf16(s[j][0], s[j][1]);
+          *reinterpret_cast<uint32_t*>(Xp + (g + 8) * kLDX + col) = pack_bf16(s[j][2], s[j][3]);
+          *reinterpret_cast<uint32_t*>(Xd + g * kLDX + col) = pack_bf16(dp[j][0], dp[j][1]);
+          *reinterpret_cast<uint32_t*>(Xd + (g + 8) * kLDX + col) =
+              pack_bf16(dp[j][2], dp[j][3]);
+        }
+        named_barrier(1 + grp, 32 * SPLIT);
+      }
+#pragma unroll
+      for (int kk = 0; kk < SUB / 16; ++kk) {  // dV += Pᵀ·dO, dK += dSᵀ·Q in bf16
         uint32_t ap[4], ad[4];
-        pack_a(ap, s, kk);
-        pack_a(ad, dp, kk);
+        if constexpr (SPLIT > 1) {
+          ldmatrix_x4(ap, Xp + a_row(lane) * kLDX + kk * 16 + a_col(lane));
+          ldmatrix_x4(ad, Xd + a_row(lane) * kLDX + kk * 16 + a_col(lane));
+        } else {
+          pack_a(ap, s, kk);
+          pack_a(ad, dp, kk);
+        }
 #pragma unroll
         for (int n = 0; n < NO; n += 2) {
-          const int off = (c0 + kk * 16 + a_row(lane)) * LD + n * 8 + a_col(lane);
+          const int off = (c0 + kk * 16 + a_row(lane)) * LD + col0 + n * 8 + a_col(lane);
           uint32_t bo[4], bq[4];
           ldmatrix_x4_trans(bo, Ot + off);
           ldmatrix_x4_trans(bq, Qt + off);
@@ -573,8 +626,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_async_wait<0>();  // no copy outlives the block (K and V when total = 0)
   const long long kv_row0 = (static_cast<long long>(b) * hkv + hk) * sk;
-  store_rows<NO>(dk + kv_row0 * d, dka, kr0 + g, sk, d, 1.f, 1.f, t);
-  store_rows<NO>(dv + kv_row0 * d, dva, kr0 + g, sk, d, 1.f, 1.f, t);
+  store_rows<NO>(dk + kv_row0 * d, dka, kr0 + g, sk, d, 1.f, 1.f, t, col0);
+  store_rows<NO>(dv + kv_row0 * d, dva, kr0 + g, sk, d, 1.f, 1.f, t, col0);
 }
 
 template <int DP, bool ALIGNED>
@@ -776,7 +829,7 @@ int launch_dkv(const Args& a) {
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.b * a.hkv, (a.sk + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
+  kernel<<<grid, dkv_threads<DP>(), smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
       static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.hq, a.hq / a.hkv, a.sq, a.sk,
@@ -816,8 +869,8 @@ int dq_at(const Args& a, bool aligned) {
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
-// d rounded up to a multiple of 16 (the mma depth) up to 128; above, the
-// forward's 160 or 256.
+// d rounded up to a multiple of 16 (the mma depth) up to 128; above, 160
+// or 256.
 int forward_dim(int d) {
   if (d <= 0 || d > 256) return 0;
   if (d <= 128) return (d + 15) / 16 * 16;
@@ -857,7 +910,7 @@ int run_dq(const Args& a, bool aligned) {
 }
 
 int run_dkv(const Args& a, bool aligned) {
-  switch (a.d <= 128 ? forward_dim(a.d) : 0) {
+  switch (forward_dim(a.d)) {
     case 16: return dkv_at<16>(a, aligned);
     case 32: return dkv_at<32>(a, aligned);
     case 48: return dkv_at<48>(a, aligned);
@@ -866,6 +919,8 @@ int run_dkv(const Args& a, bool aligned) {
     case 96: return dkv_at<96>(a, aligned);
     case 112: return dkv_at<112>(a, aligned);
     case 128: return dkv_at<128>(a, aligned);
+    case 160: return dkv_at<160>(a, aligned);
+    case 256: return dkv_at<256>(a, aligned);
     default: return kInvalid;
   }
 }

@@ -1,7 +1,7 @@
 // Inline-PTX building blocks for tensor-core kernels on Hopper (sm_90a):
 // the warp-level bf16 product mma.sync m16n8k16 with f32 accumulators,
 // ldmatrix (plain and transposed) for its operands, cp.async copies from
-// device memory into shared memory, and bf16 packing.
+// device memory into shared memory, named barriers, and bf16 packing.
 //
 // Fragment layouts of m16n8k16 (lane = 4·g + t, g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a[0] = rows g, cols 2t..2t+1; a[1] = row g + 8,
@@ -61,6 +61,12 @@ __device__ __forceinline__ int a_row(int lane) { return lane & 15; }
 __device__ __forceinline__ int a_col(int lane) { return (lane >> 4) << 3; }
 __device__ __forceinline__ int b_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
 __device__ __forceinline__ int b_col(int lane) { return ((lane >> 3) & 1) << 3; }
+
+// A barrier of `threads` threads (whole warps) of the block on named
+// barrier `id` (1-15; __syncthreads takes 0).
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
 
 // 16 bytes from global src to shared dst; only the first src_bytes are read
 // and the rest of the 16 is zero-filled (src_bytes = 0 reads nothing). dst

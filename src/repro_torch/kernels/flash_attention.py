@@ -34,10 +34,10 @@ from . import cuda, ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
-# The widest head each tensor-core kernel holds: the forward's O and dq's
-# dQ accumulator fit in registers up to 256; dk/dv keeps two accumulators,
-# which fit up to 128.
-MMA_MAX_HEAD_DIM = {"flash_fwd": 256, "flash_bwd_dq": 256, "flash_bwd_dkv": 128}
+# The widest head each tensor-core kernel holds: every one up to 256 (dk/dv
+# above 128 splits its two accumulators' columns between two warps), so
+# every bf16 launch takes the tensor cores and every f32 one the CUDA cores.
+MMA_MAX_HEAD_DIM = {"flash_fwd": 256, "flash_bwd_dq": 256, "flash_bwd_dkv": 256}
 # The C entry point of each (kernel, variant).
 _ENTRY = {("flash_fwd", "mma"): "sc_flash_fwd_mma",
           ("flash_fwd", "cuda_core"): "sc_flash_fwd",

@@ -8,10 +8,10 @@ CPU. The data-plane kernels are compared bitwise; RMSNorm, the flash forward
 and the SSD scan within the JAX kernel tests' tolerances (1e-5 / 2e-2,
 2e-5 / 3e-2 and 2e-4 / 5e-2 in f32 / bf16), the flash backward within 2e-4
 in f32 (the JAX gradient test's) and 3e-2 in bf16 (one bf16 rounding of
-each gradient, as the forward's); each bf16 flash case also checks which
-kernel it took (the tensor cores or the CUDA cores), and the forward and
-the dq backward must repeat bitwise. Needs a card; every test skips without
-one:
+each gradient, as the forward's); each flash case also checks which kernel
+it took (bf16: the tensor cores; f32: the CUDA cores), and the forward, the
+dq and the dk/dv backward must repeat bitwise. Needs a card; every test
+skips without one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -362,7 +362,7 @@ FLASH_CASES = [  # b, hq, hkv, sq, sk, d, causal
 ]
 # The kernel each bf16 flash launch must take (f32 always keeps the CUDA
 # cores): the tensor cores up to these head widths.
-MMA_WIDTH = {"flash_fwd": 256, "flash_bwd_dq": 256, "flash_bwd_dkv": 128}
+MMA_WIDTH = {"flash_fwd": 256, "flash_bwd_dq": 256, "flash_bwd_dkv": 256}
 
 
 def expect_variant(kernel, dtype, d):
@@ -405,6 +405,34 @@ def test_flash_fwd_repeats_bitwise(dev, dtype):
         if not (torch.equal(o, first[0]) and torch.equal(lse, first[1])):
             differs.append(run)
     assert not differs, f"runs {differs} differ from run 0 (first: {differs[:1]})"
+
+
+def rel_close(cpu_out, cuda_out, rel, ctx=""):
+    """||cuda - cpu|| / ||cpu|| <= rel for each output, over the entries the
+    CPU gives finite (a keyless row's +inf lse is held by ``close``)."""
+    for a, b in zip(cpu_out, cuda_out):
+        fin = torch.isfinite(a)
+        want = a[fin].double()
+        diff = float((b.cpu()[fin].double() - want).norm())
+        assert diff <= rel * float(want.norm()), f"{ctx}: {diff} > {rel} x {float(want.norm())}"
+
+
+@pytest.mark.parametrize("s", [63, 64, 65, 129])
+@pytest.mark.parametrize("d", [80, 100, 160, 256])
+def test_flash_fwd_f32_tile_edges(dev, d, s):
+    """The f32 forward's tiles (128 query rows up to head dim 96, 64 above;
+    64 kv rows) at their edges, causal with GQA and non-causal, at head dims
+    on and between its padded widths: within 2e-5 and 1e-4 of ||want||."""
+    for causal in (True, False):
+        q = randn((1, 8, s, d), torch.float32, 11)
+        k = randn((1, 2, s, d), torch.float32, 12)
+        v = randn((1, 2, s, d), torch.float32, 13)
+        ops.reset_launches()
+        got = flash_attention_fwd(q.to(dev), k.to(dev), v.to(dev), causal=causal)
+        expect_variant("flash_fwd", torch.float32, d)
+        want = flash_attention_fwd(q, k, v, causal=causal)
+        close(want, got, ATTN_TOL[torch.float32], f"d {d} s {s} causal {causal}")
+        rel_close(want, got, 1e-4, f"d {d} s {s} causal {causal}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -450,6 +478,57 @@ def test_flash_bwd_dq_repeats_bitwise(dev, case):
     assert not differs, f"runs {differs} differ from run 0 (first: {differs[:1]})"
 
 
+def test_flash_bwd_dkv_repeats_bitwise(dev):
+    """The bf16 dk/dv kernel at the serving oracle's head dim 160 (two warps
+    per 16 kv rows, Pᵀ and dSᵀ exchanged in shared memory) is deterministic:
+    20 launches give the same bits, each within BWD_TOL of the CPU, all on
+    the tensor cores. Names the first launch that differs."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, hq, hkv, sq, sk, d, causal = FLASH_CASES[0]
+    dtype = torch.bfloat16
+    q, k, v, do = (randn(shape, dtype, seed) for seed, shape in enumerate(
+        ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, hq, sq, d)), 1))
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    want = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)[1:]
+    args = [t.to(dev) for t in (q, k, v, do, lse)]
+    delta = (args[3].float() * o.to(dev).float()).sum(-1)
+    ops.reset_launches()
+    first = fa._launch_dkv(*args, delta, causal, 1.0 / d**0.5)
+    close(want, first, BWD_TOL[dtype], "dk, dv")
+    differs = [run for run in range(1, 20) if not all(
+        torch.equal(a, b) for a, b in zip(fa._launch_dkv(*args, delta, causal, 1.0 / d**0.5),
+                                          first))]
+    assert ops.variant_launches["flash_bwd_dkv/mma"] == ops.launches["flash_bwd_dkv"] == 20
+    assert not differs, f"runs {differs} differ from run 0 (first: {differs[:1]})"
+
+
+@pytest.mark.parametrize("d", [160, 256])
+def test_flash_bwd_wide_heads_keyless_rows_and_strided_grad(dev, d):
+    """bf16 at the wide heads on the tensor cores: a causal query block past
+    every key (sq > sk, rows above the first key column's reach add nothing),
+    a key set of length 0 (dq = 0, empty dk and dv), and the transposed
+    output gradient autograd hands the Function, against the CPU."""
+    dtype = torch.bfloat16
+    q = torch.ones(1, 4, 8, d, dtype=dtype, device=dev)
+    empty = torch.ones(1, 2, 0, d, dtype=dtype, device=dev)
+    o, lse = flash_attention_fwd(q, empty, empty)
+    dq, dk, dv = flash_attention_bwd(q, empty, empty, o, lse, torch.ones_like(q))
+    assert not dq.any() and dk.shape == (1, 2, 0, d) and dv.shape == dk.shape
+    qs = randn((2, 70, 16, d), dtype, 5)     # (b, s, h, d), causal sq > sk
+    kv = randn((2, 40, 4, d), dtype, 6)
+    g = randn((2, 70, 16, d), dtype, 7)
+    grads = []
+    for device in ("cpu", dev):
+        ops.reset_launches()
+        leaves = [t.detach().to(device).requires_grad_(True) for t in (qs, kv, kv.clone())]
+        out = ops.flash_attention(*(t.transpose(1, 2) for t in leaves))
+        out.transpose(1, 2).backward(g.to(device))
+        grads.append(tuple(t.grad for t in leaves))
+    assert ops.variant_launches["flash_bwd_dkv/mma"] == 1
+    close(grads[0], grads[1], BWD_TOL[dtype], f"d {d}")
+
+
 def test_flash_bwd_dq_entries_refuse_what_they_do_not_run(dev):
     """Neither dq kernel takes the other's inputs: the CUDA-core entry
     refuses bf16, the tensor-core entry head widths past 256; each refusal
@@ -474,6 +553,35 @@ def test_flash_bwd_dq_entries_refuse_what_they_do_not_run(dev):
     with pytest.raises(RuntimeError, match="sc_flash_bwd_dq_mma"):
         launch("sc_flash_bwd_dq_mma", torch.bfloat16, 320, 1)  # aligned, d > 256
     assert ops.launches["flash_bwd_dq"] == 0
+
+
+@pytest.mark.parametrize("d", [80, 160, 256])
+def test_flash_cuda_core_entries_refuse_bf16(dev, d):
+    """The CUDA-core forward and dk/dv entries take f32 only: a bf16 launch
+    (dtype code 1) raises and counts no launch, at every head width (bf16
+    dk/dv above 128 runs on the tensor cores)."""
+    import ctypes
+
+    from repro_torch import native
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.ones(1, 2, 8, d, dtype=torch.bfloat16, device=dev)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    shape = [ctypes.c_int(n) for n in (1, 2, 1, 8, 8, d)]
+    tail = (ctypes.c_float(1.0), ctypes.c_int(1), ctypes.c_int(1))
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="sc_flash_fwd"):
+        native.launch("flash_fwd", "sc_flash_fwd", dev,
+                      *(native.ptr(t) for t in (q, q[:, :1], q[:, :1], torch.empty_like(q), lse)),
+                      *shape, ctypes.cast(fa._strides(q, q[:, :1], q[:, :1]), ctypes.c_void_p),
+                      *tail)
+    with pytest.raises(RuntimeError, match="sc_flash_bwd_dkv"):
+        kv = torch.empty_like(q[:, :1])
+        native.launch("flash_bwd_dkv", "sc_flash_bwd_dkv", dev,
+                      *(native.ptr(t) for t in (q, q[:, :1], q[:, :1], q, lse, lse, kv, kv)),
+                      *shape, ctypes.cast(fa._strides(q, q[:, :1], q[:, :1], q), ctypes.c_void_p),
+                      *tail)
+    assert ops.launches["flash_fwd"] == ops.launches["flash_bwd_dkv"] == 0
 
 
 def test_flash_bwd_keyless_rows_and_strided_grad(dev):

@@ -8,7 +8,8 @@ kernels themselves run only on the card; what they change in the numbers
 is emulated here in PyTorch: the forward's online softmax over 64-column
 kv tiles with P rounded to bf16 before P·V (the normaliser sums the
 unrounded p), the dk/dv backward with Pᵀ and dSᵀ rounded to bf16 before
-Pᵀ·dO and dSᵀ·Q, and the dq backward with dS rounded to bf16 before dS·K,
+Pᵀ·dO and dSᵀ·Q (also at head dims 160 and 256, where the kernel's two
+warps per 16 kv rows exchange them already rounded), and the dq backward with dS rounded to bf16 before dS·K,
 every product on bf16 operands with f32 sums. The emulation is held
 against the JAX package's Pallas forward and ``jax.grad`` of its custom VJP
 in interpret mode, on bf16 inputs made with numpy from a seed, within the
@@ -45,6 +46,17 @@ CASES = [  # b, hq, hkv, sq, sk, d, causal
 # With one key, o = v and every gradient but dv is zero up to rounding: no
 # relative bound can hold there, so the backward takes the other cases.
 BWD_CASES = [c for c in CASES if c[4] > 1]
+# dk/dv at the wide heads (stablelm-12b's 160, gemma-7b's 256), where two
+# warps share each 16 kv rows and exchange Pᵀ and dSᵀ in bf16: the tile
+# edges 63 / 65 / 129, GQA, ragged and causal sq != sk.
+WIDE_DKV_CASES = [
+    (1, 4, 1, 63, 63, 160, True),
+    (1, 4, 1, 65, 65, 256, True),
+    (1, 4, 1, 129, 129, 160, True),
+    (1, 8, 2, 65, 129, 256, False),   # ragged, GQA
+    (2, 4, 1, 63, 129, 160, True),    # causal, sq < sk
+    (1, 4, 2, 129, 65, 256, True),    # causal, sq > sk, GQA
+]
 
 
 def mma_forward(q, k, v, causal, scale=None):
@@ -153,13 +165,11 @@ def hold(got, want, what):
 @pytest.mark.parametrize("d", [16, 64, 80, 96, 100, 128, 160, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_variant_by_dtype_and_head_width(dtype, d):
-    """bf16 takes the tensor cores up to 256 in the forward and dq and 128
-    in dk/dv; f32 always keeps the CUDA cores (no TF32)."""
+    """bf16 takes the tensor cores up to 256 in the forward, dq and dk/dv;
+    f32 always keeps the CUDA cores (no TF32)."""
     bf16 = dtype == torch.bfloat16
-    assert fa.variant("flash_fwd", dtype, d) == ("mma" if bf16 else "cuda_core")
-    assert fa.variant("flash_bwd_dq", dtype, d) == ("mma" if bf16 else "cuda_core")
-    assert fa.variant("flash_bwd_dkv", dtype, d) == ("mma" if bf16 and d <= 128
-                                                     else "cuda_core")
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.variant(kernel, dtype, d) == ("mma" if bf16 else "cuda_core"), kernel
 
 
 def test_cp_async_alignment_rule():
@@ -216,10 +226,11 @@ def pallas_grad_case(b, hq, hkv, sq, sk, d, causal):
     return want, (q, k, v, o, lse, do)
 
 
-@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", BWD_CASES)
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", BWD_CASES + WIDE_DKV_CASES)
 def test_mma_dkv_rounding_within_bounds_of_pallas_grad(b, hq, hkv, sq, sk, d, causal):
     """JAX's dq, dk, dv against the emulated forward and dk/dv (dq here from
-    the plain version; the dq kernel's rounding is held below)."""
+    the plain version; the dq kernel's rounding is held below), at the
+    training widths and the wide heads."""
     want, (q, k, v, o, lse, do) = pallas_grad_case(b, hq, hkv, sq, sk, d, causal)
     dq = ref.attention_bwd(q, k, v, o, lse, do, causal=causal)[0]
     dk, dv = mma_dkv(q, k, v, o, lse, do, causal)
