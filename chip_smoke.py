@@ -15,7 +15,10 @@ train, and prints no kernels or result line):
              the flash kernels by name); the SASS of the tensor-core
              forward, dq and dk/dv kernels (dk/dv also at head dims 160
              and 256) must hold bf16 HMMA in their main loops, and dk/dv at
-             160 and 256 must not spill;
+             160 and 256 must not spill; the f32 backward pair must not
+             spill at head dims 80 and 160, and its SASS there must hold no
+             tensor-core instruction (its main loops' FFMA, LDS, LDGSTS and
+             BAR counts logged);
 3. kernels — each hand-written kernel against its plain PyTorch version on
              the card: the data-plane kernels bitwise at the main path's
              shapes (16,777,216 rows; a 4,194,304-key join index; P = 8
@@ -47,8 +50,10 @@ train, and prints no kernels or result line):
              closed form (f64); kernel, plain and library-call
              times from CUDA events, the kernel's and the library call's
              device time alone (``device_ms``: CUPTI under
-             ``torch.profiler``), and the forward+backward pair against
-             SDPA's;
+             ``torch.profiler``), the kernels each library call ran (SDPA's
+             backward: those its forward did not run), each flash case's
+             dq + dk/dv device time beside SDPA's backward, and the
+             forward+backward pair against SDPA's;
 4. main    — one S/C refresh round: ``generate_workload(12, seed=4)``
              realized at 512 MiB per root on the card, calibrated, solved
              for a 1.6 GB Memory Catalog, run serially and with S/C; the
@@ -164,8 +169,20 @@ MMA_SASS = {"flash_fwd": "flash_fwd_mma_kernelILi80ELb1E",
             "flash_bwd_dkv": "flash_bwd_dkv_mma_kernelILi80ELb1E",
             "flash_bwd_dkv@160": "flash_bwd_dkv_mma_kernelILi160ELb1E",
             "flash_bwd_dkv@256": "flash_bwd_dkv_mma_kernelILi256ELb1E"}
-# Instantiations that must not spill (ptxas -v): the split dk/dv kernels.
-NO_SPILL = ("flash_bwd_dkv_mma_kernelILi160E", "flash_bwd_dkv_mma_kernelILi256E")
+# Instantiations that must not spill (ptxas -v), by source: the split
+# tensor-core dk/dv kernels, and the f32 backward pair at the training
+# path's head dim 80 and the serving oracle's 160 (both alignments).
+NO_SPILL = {"flash_attention_mma": ("flash_bwd_dkv_mma_kernelILi160E",
+                                    "flash_bwd_dkv_mma_kernelILi256E"),
+            "flash_attention": ("flash_bwd_dq_kernelILi80E", "flash_bwd_dq_kernelILi160E",
+                                "flash_bwd_dkv_kernelILi80E", "flash_bwd_dkv_kernelILi160E")}
+# SASS functions of the f32 backward pair (16-byte copies) at head dims 80
+# and 160, whose every product must stay an f32 FMA: no tensor-core
+# instruction anywhere in them.
+CUDA_CORE_SASS = {"flash_bwd_dq@80": "flash_bwd_dq_kernelILi80ELb1E",
+                  "flash_bwd_dkv@80": "flash_bwd_dkv_kernelILi80ELb1E",
+                  "flash_bwd_dq@160": "flash_bwd_dq_kernelILi160ELb1E",
+                  "flash_bwd_dkv@160": "flash_bwd_dkv_kernelILi160ELb1E"}
 
 # Which Pallas kernel each port kernel replaces (JAX package, file:line).
 REPLACES = {
@@ -385,14 +402,36 @@ def mma_main_loops(lib_path, functions: dict[str, str]) -> dict[str, dict[str, i
     out = {}
     for kernel, fn in functions.items():
         ins = next(v for k, v in funcs.items() if fn in k)
-        body = max(sass_loops(ins), key=len)
-        out[kernel] = {op: sum(bool(re.search(rf"(^|\s){re.escape(op)}", text))
-                               for _, text in body)
-                       for op in ("HMMA.16816.F32.BF16", "LDSM", "LDGSTS")}
-        out[kernel]["instructions"] = len(body)
+        out[kernel] = main_loop_counts(ins, ("HMMA.16816.F32.BF16", "LDSM", "LDGSTS"))
         if not out[kernel]["HMMA.16816.F32.BF16"]:
             raise AssertionError(f"{kernel} ({fn}): no HMMA.16816.F32.BF16 in its main loop "
                                  f"({len(body)} instructions)")
+    return out
+
+
+def cuda_core_main_loops(lib_path, functions: dict[str, str]) -> dict[str, dict[str, int]]:
+    """f32 FMAs, shared-memory loads and cp.async copies in the main loop (the
+    longest loop) of each CUDA-core kernel, read from its SASS; raise if any
+    instruction of the kernel runs on the tensor cores (HMMA, HGMMA: a TF32
+    product would be one)."""
+    funcs = sass_functions(lib_path)
+    out = {}
+    for kernel, fn in functions.items():
+        ins = next(v for k, v in funcs.items() if fn in k)
+        tensor = [text for _, text in ins if re.search(r"(^|\s)(HMMA|HGMMA|IMMA)", text)]
+        if tensor:
+            raise AssertionError(f"{kernel} ({fn}): tensor-core instructions {tensor[:3]}")
+        out[kernel] = main_loop_counts(ins, ("FFMA", "LDS", "LDGSTS", "BAR"))
+    return out
+
+
+def main_loop_counts(ins, ops) -> dict[str, int]:
+    """How many instructions of the main loop (the longest loop) of a
+    function's SASS start with each of ``ops``, and the loop's length."""
+    body = max(sass_loops(ins), key=len)
+    out = {op: sum(bool(re.search(rf"(^|\s){re.escape(op)}", text)) for _, text in body)
+           for op in ops}
+    out["instructions"] = len(body)
     return out
 
 
@@ -426,6 +465,12 @@ def device_ms(torch, fn, samples: int = 21, batch: int = 10) -> float:
     ``torch.profiler`` (device activity only), over the calls. Beside
     ``time_ms``, which a caller feels, it says whether the device or the
     host sets the pace."""
+    return device_profile(torch, fn, samples, batch)[0]
+
+
+def device_profile(torch, fn, samples: int = 21, batch: int = 10) -> tuple[float, dict]:
+    """:func:`device_ms` and the names of what the calls ran on the card,
+    each with its device ms per call."""
     fn()
     torch.cuda.synchronize()
     calls = samples * batch
@@ -435,7 +480,8 @@ def device_ms(torch, fn, samples: int = 21, batch: int = 10) -> float:
             fn()
 
     _, by_name, _ = device_kernel_times(torch, run)
-    return sum(us for us, _ in by_name.values()) / calls / 1e3
+    per_call = {name: us / calls / 1e3 for name, (us, _) in by_name.items()}
+    return sum(per_call.values()), per_call
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -934,10 +980,17 @@ def model_kernel_phase(torch, dev, bw):
             key = (id(c["lfn"]), case)
             if key not in lib_times:
                 minus = c["lib_minus"]
-                lib_times[key] = tuple(
-                    clock(torch, c["lfn"], **timing)
-                    - (0.0 if minus is None else clock(torch, minus, **timing))
-                    for clock in (time_ms, device_ms))
+                lib_ms = time_ms(torch, c["lfn"], **timing) - (
+                    0.0 if minus is None else time_ms(torch, minus, **timing))
+                lib_dev, ran = device_profile(torch, c["lfn"], **timing)
+                if minus is not None:   # the library's backward: what its forward did not run
+                    minus_dev, minus_ran = device_profile(torch, minus, **timing)
+                    lib_dev -= minus_dev
+                    ran = {name: ms for name, ms in ran.items() if name not in minus_ran}
+                lib_times[key] = (lib_ms, lib_dev)
+                log(f"library {'backward ' if minus is not None else ''}{kernel} {case}: "
+                    "device ms per call by kernel (names to their argument list) "
+                    f"{ {name.split('(')[0][:160]: ms for name, ms in ran.items()} }")
             library_ms, library_device_ms = lib_times[key]
         row = dict(
             kernel=kernel, case=case, max_abs_err=err,
@@ -956,9 +1009,29 @@ def model_kernel_phase(torch, dev, bw):
             f"bound_ms={row['bound_ms']} ({row['bound_by']}, {nbytes} B, bytes {bytes_ms} ms, "
             f"{n_ops} ops {ops_ms} ms)")
         del got, want
+    log_bwd_pairs(rows)
     bwd_wrapper(torch, dev)
     flash_pair(torch, dev)
     return rows
+
+
+def log_bwd_pairs(rows) -> None:
+    """The two flash backward kernels' device time together, beside their
+    bounds and the library's backward (SDPA's pair minus its forward), for
+    every case that launched both."""
+    pairs = collections.defaultdict(dict)
+    for r in rows:
+        if r["kernel"] in ("flash_bwd_dq", "flash_bwd_dkv"):
+            pairs[r["case"]][r["kernel"]] = r
+    for case, pair in pairs.items():
+        if len(pair) < 2:
+            continue
+        dq, dkv = pair["flash_bwd_dq"], pair["flash_bwd_dkv"]
+        ours, lib = dq["device_ms"] + dkv["device_ms"], dq["library_device_ms"]
+        log(f"kernel flash backward pair {case} ({dq['variant']}): dq {dq['device_ms']} + "
+            f"dk/dv {dkv['device_ms']} = {ours} ms device, bound "
+            f"{dq['bound_ms'] + dkv['bound_ms']} ms; library backward {lib} ms device"
+            + (f" ({ours / lib:.2f}x)" if lib else ""))
 
 
 def hold_final_state(torch, case, inputs, got, plain):
@@ -1823,13 +1896,14 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line or (
                     name.startswith("flash_attention") and "Compiling entry" in line):
                 log(f"  {name}: {line.strip()}")
-    entries = ptxas_entries(logs["flash_attention_mma"])
-    for want in NO_SPILL:
-        found = {fn: e for fn, e in entries.items() if want in fn}
-        if not found or any(e.get("spill_stores", 1) or e.get("spill_loads", 1)
-                            for e in found.values()):
-            raise AssertionError(f"{want}: spills or not built: {found}")
-        log(f"ptxas: {want}*: {list(found.values())} (no spills)")
+    for source, wants in NO_SPILL.items():
+        entries = ptxas_entries(logs[source])
+        for want in wants:
+            found = {fn: e for fn, e in entries.items() if want in fn}
+            if not found or any(e.get("spill_stores", 1) or e.get("spill_loads", 1)
+                                for e in found.values()):
+                raise AssertionError(f"{want}: spills or not built: {found}")
+            log(f"ptxas: {want}*: {list(found.values())} (no spills)")
     inst_rate = issue_rate(torch)
     per_row = sass_per_row(native.library_path("dataplane"), HASH_SASS)
     log(f"issue rate {inst_rate:.4e} instructions/s; SASS instructions per row "
@@ -1837,6 +1911,8 @@ def main() -> int:
     mma_loops = mma_main_loops(native.library_path("flash_attention_mma"), MMA_SASS)
     log(f"tensor-core flash kernels, main loop (SASS, head dim 80; dk/dv also 160 and "
         f"256): {mma_loops}")
+    f32_loops = cuda_core_main_loops(native.library_path("flash_attention"), CUDA_CORE_SASS)
+    log(f"f32 flash backward, main loop (SASS; no tensor-core instruction): {f32_loops}")
 
     if only is not None:
         return run_only(torch, np, dp, dev, bw, inst_rate, per_row, only, t_start)

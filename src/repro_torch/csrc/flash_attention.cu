@@ -55,29 +55,47 @@
 //   only the diagonal and ragged tiles are masked, and tiles wholly above
 //   the diagonal are never loaded. Inputs whose rows are not on 16 bytes
 //   take an ALIGNED = false instantiation with element loads.
-// - dq: one block per (batch, query head, 64 query rows), Q and dO resident;
-//   for each kv tile up to the causal end, V then K through one buffer:
-//   dP = dO·Vᵀ goes to shared memory, S = Q·Kᵀ stays in registers, then
-//   dS = p ⊙ (dP - delta)·scale with p = exp(S·scale - lse) overwrites dP,
-//   and dq += dS·K with K still in place. dq is written once.
-// - dkv: one block per (batch, kv head, 32 kv rows), K and V resident; it
-//   loops over the group's query heads and, for each, over the 64-row query
-//   tiles from the causal start, computing Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ with
-//   R = 2 rows per thread, then dv += Pᵀ·dO and dk += dSᵀ·Q. 32 kv rows keep
-//   both accumulators (2 x 2 x 4·DP/32 floats) in registers at DP 256, where
-//   64 rows would not fit. A kv head owns its block, so the group sum of the
-//   Pallas wrapper (:343-356) needs no second pass and no float atomics:
-//   the backward is deterministic.
-//   dq and dkv stream 64-row tiles through shared memory with R rows and
-//   4·(DP/32) output columns a thread (dot_rows and acc_rows below), the
-//   head dim padded to DP in {64, 96, 128, 160, 256}.
+// - The backward kernels share a thread layout: 16 threads (tx) a row group
+//   of 8 rows, each thread an 8 x 4 tile of a 64-column score tile (columns
+//   tx + 16·j) from float4 reads along the depth (score_tile), and an 8 x
+//   DP/16 accumulator (columns tx + 16·c; acc_tile, 4 + 2.5·DP/16 floats
+//   read a 32·DP/16 FMAs). A row group lies in one warp, so a score tile
+//   that only its own row group reads back needs __syncwarp, not a block
+//   barrier. The head dim is padded as the forward's, the mask computed on
+//   diagonal and ragged tiles only, and p = exp2(s·scale·log2 e - lse·log2
+//   e). Tiles arrive by 16-byte cp.async (element loads when a row is off 16
+//   bytes: ALIGNED = false).
+// - dq: one block per (batch, query head, BM query rows), BM = 128 with 256
+//   threads up to DP 112 and 64 with 128 threads above (Q and dO resident:
+//   2·BM rows), the longest query tiles first (grid.y counts down). V_i and
+//   K_i arrive in turn through two 64-row buffers, each copy under the
+//   other's product: dP = dO·V_iᵀ in registers while K_i lands, then S =
+//   Q·K_iᵀ while V_(i+1) lands, dS = p ⊙ (dP - delta)·scale into the row
+//   group's rows of a shared tile, and dq += dS·K_i; two barriers a kv tile.
+//   At DP 256 one buffer (217 KB of shared memory), the copies exposed.
+// - dkv: one block per (batch, kv head, 64 kv rows; 32 at DP 256), K and V
+//   resident, over the group's query heads and each one's 64-row query tiles
+//   from the causal start, Q and dO (with lse and delta) double-buffered up
+//   to DP 112 and single above. Two accumulators of 8 x DP/16 do not fit a
+//   thread beside a score tile, so the block is two halves of the same row
+//   groups: the first computes Sᵀ = K·Qᵀ, writes Pᵀ and owns dv += Pᵀ·dO;
+//   the second computes dPᵀ = V·dOᵀ, reads its partner's Pᵀ after a named
+//   barrier of the two warps (bar.sync 1 + warp, 64), writes dSᵀ and owns dk
+//   += dSᵀ·Q. One block barrier a query tile. A kv head owns its block, so
+//   the group sum of the Pallas wrapper (:343-356) needs no second pass and
+//   no float atomics: the backward is deterministic.
 // - delta = rowsum(do ⊙ o) is computed by the caller in PyTorch, as the
 //   reference computes it in jnp outside its kernels (:272).
 //
 // ptxas -v (CUDA 12.8, sm_90a; chip_smoke.py's build log), the forward with
 // 16-byte copies: DP 16-80 210-254 registers and no spills (80: 254); DP 96
 // 255 with 64 bytes of spill stores and DP 112 168 with 24 (no config has a
-// head dim in 81-112); DP 128 226, 160 254, 256 252, no spills.
+// head dim in 81-112); DP 128 226, 160 254, 256 252, no spills. The
+// backward, both alignments, no spills anywhere: dq 130 registers at DP 16,
+// 168 at 32-80, 242-244 at 96, 252-254 above; dk/dv 128 at 16, 166-168 at
+// 32-96, 254 at 112-160, 243 at 256. Device time on an H100 (700 W) at
+// the training shape (2, 32/32, 4096, 80) causal: dq 7.42 ms (52% of its
+// 3.85 ms bound), dk/dv 9.97 (51% of 5.13); SDPA's f32 backward 17.8.
 //
 // Interface: plain extern "C" functions loaded with ctypes. Each launches on
 // the caller's stream, never synchronises, and returns cudaGetLastError().
@@ -93,12 +111,11 @@ using sc_mma::cp_async_16;
 using sc_mma::cp_async_commit;
 using sc_mma::cp_async_wait;
 
-constexpr int kBQ = 64;       // query rows per tile (dq, dkv)
-constexpr int kBK = 64;       // kv rows per tile
-constexpr int kBKV = 32;      // kv rows per dkv block
-constexpr int kThreads = 128; // threads per block
+constexpr int kBQ = 64;       // query rows per dk/dv tile
+constexpr int kBK = 64;       // kv rows per tile (forward, dq)
 constexpr int kLDP = kBK + 4; // row stride of a 64-column score tile, floats
-constexpr int kTM = 8;        // query rows per thread in the forward
+constexpr int kTM = 8;        // rows per thread (a row group)
+constexpr int kTX = 16;       // threads per row group in the backward
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -108,7 +125,7 @@ struct Strides {
 
 // rows [r0, r0 + nrows) of one head, columns [0, d), into a ROWS x DP f32
 // tile with row stride DP + 4, by the block's NT threads; zeros outside.
-template <int ROWS, int DP, int NT = kThreads>
+template <int ROWS, int DP, int NT>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, long long row_stride,
                                           int r0, int nrows, int d) {
   for (int i = threadIdx.x; i < ROWS * DP; i += NT) {
@@ -138,90 +155,85 @@ __device__ __forceinline__ void copy_tile(float* dst, const float* src, long lon
   }
 }
 
-// s[i][j] = A[ty·R + i] · B[tx + 8j] over DP columns (two tiles of row
-// stride DP + 4).
-template <int R, int DP>
-__device__ __forceinline__ void dot_rows(float (&s)[R][8], const float* A, const float* B,
-                                         int ty, int tx) {
+// s[i][j] = A[i] · B[tx + 16·j] over DP columns: A the thread's kTM rows
+// (broadcast within its row group), B a 64-row tile; both of row stride
+// DP + 4, which puts the 16 rows a warp reads at once in distinct banks.
+template <int DP>
+__device__ __forceinline__ void score_tile(float (&s)[kTM][kBK / kTX], const float* A,
+                                           const float* B, int tx) {
   constexpr int LD = DP + 4;
+  constexpr int TN = kBK / kTX;
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int i = 0; i < kTM; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
+    for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+#pragma unroll 2
   for (int kk = 0; kk < DP; kk += 4) {
-    float4 a[R];
+    float4 bv[TN];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
-      a[i] = *reinterpret_cast<const float4*>(&A[(ty * R + i) * LD + kk]);
+    for (int j = 0; j < TN; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(B + (tx + kTX * j) * LD + kk);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4 bv = *reinterpret_cast<const float4*>(&B[(tx + 8 * j) * LD + kk]);
+    for (int i = 0; i < kTM; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(A + i * LD + kk);
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        float t = s[i][j];
-        t = fmaf(a[i].x, bv.x, t);
-        t = fmaf(a[i].y, bv.y, t);
-        t = fmaf(a[i].z, bv.z, t);
-        t = fmaf(a[i].w, bv.w, t);
-        s[i][j] = t;
+      for (int j = 0; j < TN; ++j) {
+        float x = s[i][j];
+        x = fmaf(a.x, bv[j].x, x);
+        x = fmaf(a.y, bv[j].y, x);
+        x = fmaf(a.z, bv[j].z, x);
+        x = fmaf(a.w, bv[j].w, x);
+        s[i][j] = x;
       }
     }
   }
 }
 
-// acc[i][4·nc + e] += Σ_c P[ty·R + i][c] · B[c][tx·4 + 32·nc + e] over the
-// 64 columns of a score tile P (row stride kLDP) and 64 rows of B (row
-// stride DP + 4).
-template <int R, int DP>
-__device__ __forceinline__ void acc_rows(float (&acc)[R][DP / 8], const float* P, const float* B,
-                                         int ty, int tx) {
+// acc[i][c] += Σ_j P[i][j] · B[j][tx + 16·c] over the 64 columns of the
+// thread's kTM rows of a score tile P (row stride kLDP) and the 64 rows of
+// B (row stride DP + 4).
+template <int DP>
+__device__ __forceinline__ void acc_tile(float (&acc)[kTM][DP / kTX], const float* P,
+                                         const float* B, int tx) {
   constexpr int LD = DP + 4;
-  constexpr int NC = DP / 32;
+  constexpr int NA = DP / kTX;
 #pragma unroll 2
-  for (int c = 0; c < kBK; c += 4) {
-    float4 pa[R];
+  for (int j0 = 0; j0 < kBK; j0 += 4) {
+    float4 p[kTM];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
-      pa[i] = *reinterpret_cast<const float4*>(&P[(ty * R + i) * kLDP + c]);
+    for (int i = 0; i < kTM; ++i) p[i] = *reinterpret_cast<const float4*>(P + i * kLDP + j0);
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
+    for (int jj = 0; jj < 4; ++jj) {
+      const float* brow = B + (j0 + jj) * LD + tx;
 #pragma unroll
-      for (int nc = 0; nc < NC; ++nc) {
-        const float4 bv = *reinterpret_cast<const float4*>(&B[(c + cc) * LD + tx * 4 + 32 * nc]);
+      for (int c = 0; c < NA; ++c) {
+        const float bv = brow[kTX * c];
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-          const float p = cc == 0 ? pa[i].x : cc == 1 ? pa[i].y : cc == 2 ? pa[i].z : pa[i].w;
-          acc[i][nc * 4 + 0] = fmaf(p, bv.x, acc[i][nc * 4 + 0]);
-          acc[i][nc * 4 + 1] = fmaf(p, bv.y, acc[i][nc * 4 + 1]);
-          acc[i][nc * 4 + 2] = fmaf(p, bv.z, acc[i][nc * 4 + 2]);
-          acc[i][nc * 4 + 3] = fmaf(p, bv.w, acc[i][nc * 4 + 3]);
+        for (int i = 0; i < kTM; ++i) {
+          const float pj = jj == 0 ? p[i].x : jj == 1 ? p[i].y : jj == 2 ? p[i].z : p[i].w;
+          acc[i][c] = fmaf(pj, bv, acc[i][c]);
         }
       }
     }
   }
 }
 
-// R output rows of a thread, columns tx·4 + 32·nc + e below d, into a
-// contiguous (rows, d) output from row index row0 (rows below nrows only).
-template <int R, int DP>
-__device__ __forceinline__ void store_rows(float* out, const float (&acc)[R][DP / 8], long long row0,
-                                           int r0, int nrows, int d, int ty, int tx) {
+// The thread's kTM accumulator rows r0 + i (those below nrows), columns
+// tx + 16·c below d, into a contiguous (rows, d) output from row row0.
+template <int DP>
+__device__ __forceinline__ void store_tile(float* out, const float (&acc)[kTM][DP / kTX],
+                                           long long row0, int r0, int nrows, int d, int tx) {
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = r0 + ty * R + i;
-    if (row >= nrows) continue;
-    float* orow = out + (row0 + row) * d;
+  for (int i = 0; i < kTM; ++i) {
+    if (r0 + i >= nrows) continue;
+    float* orow = out + (row0 + r0 + i) * d;
 #pragma unroll
-    for (int nc = 0; nc < DP / 32; ++nc)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = tx * 4 + 32 * nc + e;
-        if (col < d) orow[col] = acc[i][nc * 4 + e];
-      }
+    for (int c = 0; c < DP / kTX; ++c) {
+      const int col = tx + kTX * c;
+      if (col < d) orow[col] = acc[i][c];
+    }
   }
 }
-
 
 // The forward's geometry (see the header): NT threads a block, TX threads
 // per 8 query rows, BM = 8·NT/TX query rows a block, 64 kv rows a tile.
@@ -237,14 +249,33 @@ constexpr size_t fwd_smem_bytes() {  // Q, K, V, then P
   return sizeof(float) * (static_cast<size_t>(fwd_rows<DP>() + 2 * kBK) * (DP + 4) +
                           static_cast<size_t>(fwd_rows<DP>()) * kLDP);
 }
+// dq's geometry (see the header): BM query rows a block, 16 threads per 8
+// of them, two 64-row kv buffers but at DP 256.
 template <int DP>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(2 * kBQ + kBK) * (DP + 4) + kBQ * kLDP);
+__host__ __device__ constexpr int dq_rows() { return DP <= 112 ? 128 : 64; }
+template <int DP>
+__host__ __device__ constexpr int dq_threads() { return dq_rows<DP>() / kTM * kTX; }
+template <int DP>
+__host__ __device__ constexpr int dq_bufs() { return DP <= 160 ? 2 : 1; }
+template <int DP>
+constexpr size_t dq_smem_bytes() {  // Q, dO, the kv buffers, then dS
+  return sizeof(float) * (static_cast<size_t>(2 * dq_rows<DP>() + dq_bufs<DP>() * kBK) * (DP + 4) +
+                          static_cast<size_t>(dq_rows<DP>()) * kLDP);
 }
+
+// dk/dv's: BKV kv rows a block, two halves of BKV / 8 row groups of 16
+// threads; Q and dO in two stages up to DP 112.
 template <int DP>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(2 * kBKV + 2 * kBQ) * (DP + 4) +
-                          2 * kBKV * kLDP + 2 * kBQ);
+__host__ __device__ constexpr int dkv_rows() { return DP <= 160 ? 64 : 32; }
+template <int DP>
+__host__ __device__ constexpr int dkv_threads() { return 2 * dkv_rows<DP>() / kTM * kTX; }
+template <int DP>
+__host__ __device__ constexpr int dkv_stages() { return DP <= 112 ? 2 : 1; }
+template <int DP>
+constexpr size_t dkv_smem_bytes() {  // K, V, the stages' Q and dO, Pᵀ, dSᵀ, lse, delta
+  return sizeof(float) *
+         (static_cast<size_t>(2 * dkv_rows<DP>() + 2 * dkv_stages<DP>() * kBQ) * (DP + 4) +
+          static_cast<size_t>(2 * dkv_rows<DP>()) * kLDP + 2 * dkv_stages<DP>() * kBQ);
 }
 
 template <int DP, bool ALIGNED>
@@ -408,155 +439,236 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int hq, int group, int sq, int sk, int d,
-                    long long qsb, long long qsh, long long qss,
-                    long long ksb, long long ksh, long long kss,
-                    long long vsb, long long vsh, long long vss,
-                    long long dsb, long long dsh, long long dss,
-                    float scale, int causal) {
+template <int DP, bool ALIGNED>
+__global__ void __launch_bounds__(dq_threads<DP>(), 1)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int hq, int group, int sq, int sk, int d,
+                    Strides st, float scale, int causal) {
+  constexpr int NT = dq_threads<DP>();
+  constexpr int BM = dq_rows<DP>();
+  constexpr int NB = dq_bufs<DP>();
+  constexpr int TN = kBK / kTX;  // score columns per thread: tx + 16·j
   constexpr int LD = DP + 4;
-  constexpr int NA = DP / 8;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + kBQ * LD;
-  float* KV = dOs + kBQ * LD;
-  float* dSs = KV + kBK * LD;  // dP, then dS in place
+  float* dOs = Qs + BM * LD;
+  float* Vb = dOs + BM * LD;          // V_i (and K_i when NB = 1)
+  float* Kb = Vb + (NB - 1) * kBK * LD;
+  float* dSs = Vb + NB * kBK * LD;    // BM x kLDP
 
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
+  const int b = blockIdx.x / hq, h = blockIdx.x - b * hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // the longest causal rows first
   const int hk = h / group;
-  const float* kb = k + b * ksb + hk * ksh;
-  const float* vb = v + b * vsb + hk * vsh;
+  const float* kb = k + b * st.v[3] + hk * st.v[4];
+  const float* vb = v + b * st.v[6] + hk * st.v[7];
+  const long long kss = st.v[5], vss = st.v[8];
+  const int kend = causal ? min(sk, q0 + BM) : sk;
+  const int ntiles = (kend + kBK - 1) / kBK;
+  const float scale_log2 = scale * kLog2e;
   const long long head_row0 = (static_cast<long long>(b) * hq + h) * sq;
 
-  load_tile<kBQ, DP>(Qs, q + b * qsb + h * qsh, qss, q0, sq, d);
-  load_tile<kBQ, DP>(dOs, dout + b * dsb + h * dsh, dss, q0, sq, d);
-  float row_lse[4], row_delta[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    row_lse[i] = row < sq ? lse[head_row0 + row] : INFINITY;  // a padded row gives p = 0
-    row_delta[i] = row < sq ? delta[head_row0 + row] : 0.f;
-  }
-  float acc[4][NA];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NA; ++c) acc[i][c] = 0.f;
+  copy_tile<ALIGNED, BM, DP, NT>(Qs, q + b * st.v[0] + h * st.v[1], st.v[2], q0, sq, d);
+  copy_tile<ALIGNED, BM, DP, NT>(dOs, dout + b * st.v[9] + h * st.v[10], st.v[11], q0, sq, d);
+  if (ntiles > 0) copy_tile<ALIGNED, kBK, DP, NT>(Vb, vb, vss, 0, sk, d);
+  cp_async_commit();
 
-  const int kend = causal ? min(sk, q0 + kBQ) : sk;
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
-    __syncthreads();  // the previous tile's dS·K is done with KV and dSs
-    load_tile<kBK, DP>(KV, vb, vss, k0, sk, d);
-    __syncthreads();
-    float s[4][8];
-    dot_rows<4, DP>(s, dOs, KV, ty, tx);  // dP = dO·Vᵀ
+  const int row0 = q0 + ty * kTM;  // the thread's first query row
+  float lse2[kTM], dlt[kTM];       // lse in base 2 (+inf on a padded row: p = 0); delta
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kTM; ++i) {
+    const int row = row0 + i;
+    lse2[i] = row < sq ? lse[head_row0 + row] * kLog2e : INFINITY;
+    dlt[i] = row < sq ? delta[head_row0 + row] : 0.f;
+  }
+  float acc[kTM][DP / kTX];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) dSs[(ty * 4 + i) * kLDP + tx + 8 * j] = s[i][j];
-    __syncthreads();  // every thread is done reading V
-    load_tile<kBK, DP>(KV, kb, kss, k0, sk, d);
-    __syncthreads();
-    dot_rows<4, DP>(s, Qs, KV, ty, tx);   // S = Q·Kᵀ
+  for (int i = 0; i < kTM; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int c = 0; c < DP / kTX; ++c) acc[i][c] = 0.f;
+  const float* Qt = Qs + ty * kTM * LD;
+  const float* dOt = dOs + ty * kTM * LD;
+  float* dSt = dSs + ty * kTM * kLDP;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * kBK;
+    cp_async_wait<0>();  // V_it (and Q, dO)
+    __syncthreads();     // ... seen by every thread, and every thread is done with K_(it-1)
+    if constexpr (NB == 2) {  // K_it, under dP's math
+      copy_tile<ALIGNED, kBK, DP, NT>(Kb, kb, kss, k0, sk, d);
+      cp_async_commit();
+    }
+    float s[kTM][TN];
+    score_tile<DP>(s, dOt, Vb, tx);  // dP = dO·V_itᵀ
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = k0 + tx + 8 * j;
-        const bool keep = col < sk && (!causal || col <= row);
-        const float p = keep ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
-        float* ds = &dSs[(ty * 4 + i) * kLDP + tx + 8 * j];
-        *ds = p * (*ds - row_delta[i]) * scale;
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) dSt[i * kLDP + tx + kTX * j] = s[i][j];
+    if constexpr (NB == 1) {
+      __syncthreads();  // every thread is done with V_it
+      copy_tile<ALIGNED, kBK, DP, NT>(Kb, kb, kss, k0, sk, d);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();  // K_it
+    __syncthreads();     // ... seen by every thread, and every thread is done with V_it
+    if constexpr (NB == 2) {
+      if (it + 1 < ntiles) {  // V_(it+1), under S's math and dS·K_it
+        copy_tile<ALIGNED, kBK, DP, NT>(Vb, vb, vss, k0 + kBK, sk, d);
+        cp_async_commit();
       }
     }
-    __syncthreads();  // dS is in place
-    acc_rows<4, DP>(acc, dSs, KV, ty, tx);  // dq += dS·K
+    score_tile<DP>(s, Qt, Kb, tx);  // S = Q·K_itᵀ
+    const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > q0);  // ragged or diagonal
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int col = k0 + tx + kTX * j;
+        const bool keep = !edge || (col < sk && (!causal || col <= row0 + i));
+        float* ds = dSt + i * kLDP + tx + kTX * j;
+        const float p = exp2f(fmaf(s[i][j], scale_log2, -lse2[i]));
+        *ds = keep ? p * (*ds - dlt[i]) * scale : 0.f;
+      }
+    __syncwarp();  // the row group's dS, written by its own warp
+    acc_tile<DP>(acc, dSt, Kb, tx);  // dq += dS·K_it
+    if constexpr (NB == 1) {
+      if (it + 1 < ntiles) {
+        __syncthreads();  // every thread is done with K_it
+        copy_tile<ALIGNED, kBK, DP, NT>(Vb, vb, vss, k0 + kBK, sk, d);
+        cp_async_commit();
+      }
+    }
   }
-  store_rows<4, DP>(dq, acc, head_row0, q0, sq, d, ty, tx);
+  cp_async_wait<0>();  // no copy outlives the block (Q, dO when ntiles = 0)
+  store_tile<DP>(dq, acc, head_row0, row0, sq, d, tx);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     const float* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-                     int hq, int group, int sq, int sk, int d,
-                     long long qsb, long long qsh, long long qss,
-                     long long ksb, long long ksh, long long kss,
-                     long long vsb, long long vsh, long long vss,
-                     long long dsb, long long dsh, long long dss,
-                     float scale, int causal) {
+template <int DP, bool ALIGNED>
+__global__ void __launch_bounds__(dkv_threads<DP>(), 1)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, int hq, int group,
+                     int sq, int sk, int d, Strides st, float scale, int causal) {
+  constexpr int NT = dkv_threads<DP>();
+  constexpr int HALF = NT / 2;
+  constexpr int BKV = dkv_rows<DP>();
+  constexpr int NS = dkv_stages<DP>();
+  constexpr int TN = kBQ / kTX;  // query columns per thread: tx + 16·j
   constexpr int LD = DP + 4;
-  constexpr int NA = DP / 8;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kBKV * LD;
-  float* Qs = Vs + kBKV * LD;
-  float* dOs = Qs + kBQ * LD;
-  float* Ps = dOs + kBQ * LD;    // Pᵀ, kBKV x kLDP
-  float* dSs = Ps + kBKV * kLDP; // dSᵀ
-  float* Ls = dSs + kBKV * kLDP; // the query tile's lse
-  float* Ds = Ls + kBQ;          // and delta
+  float* Vs = Ks + BKV * LD;
+  float* Qs = Vs + BKV * LD;              // NS stages of kBQ x LD
+  float* dOs = Qs + NS * kBQ * LD;
+  float* Ps = dOs + NS * kBQ * LD;        // Pᵀ, BKV x kLDP
+  float* dSs = Ps + BKV * kLDP;           // dSᵀ
+  float* Ls = dSs + BKV * kLDP;           // NS stages of the query tile's lse
+  float* Ds = Ls + NS * kBQ;              // and delta
 
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
-  const int k0 = blockIdx.x * kBKV, hk = blockIdx.y, b = blockIdx.z;
-  const int hkv = gridDim.y;
-  load_tile<kBKV, DP>(Ks, k + b * ksb + hk * ksh, kss, k0, sk, d);
-  load_tile<kBKV, DP>(Vs, v + b * vsb + hk * vsh, vss, k0, sk, d);
-
-  float dka[2][NA], dva[2][NA];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int c = 0; c < NA; ++c) dka[i][c] = dva[i][c] = 0.f;
+  const bool pv = threadIdx.x < HALF;     // this half: Pᵀ and dv; the other dPᵀ, dSᵀ, dk
+  const int t = threadIdx.x % HALF;
+  const int tx = t % kTX, ty = t / kTX;
+  const int hkv = hq / group;
+  const int b = blockIdx.x / hkv, hk = blockIdx.x - b * hkv;
+  const int k0 = blockIdx.y * BKV;
+  const long long qss = st.v[2], dss = st.v[11];
+  copy_tile<ALIGNED, BKV, DP, NT>(Ks, k + b * st.v[3] + hk * st.v[4], st.v[5], k0, sk, d);
+  copy_tile<ALIGNED, BKV, DP, NT>(Vs, v + b * st.v[6] + hk * st.v[7], st.v[8], k0, sk, d);
 
   // causal: query tiles wholly above this kv block's first row see none of it
   const int qstart = causal ? (k0 / kBQ) * kBQ : 0;
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const float* qb = q + b * qsb + h * qsh;
-    const float* db = dout + b * dsb + h * dsh;
+  const int ntq = qstart < sq ? (sq - qstart + kBQ - 1) / kBQ : 0;
+  const int ntiles = group * ntq;   // tile n: query head hk·group + n / ntq
+  // Q, dO, lse and delta of tile n into stage n % NS (zeros past sq)
+  auto issue = [&](int n) {
+    const int g = n / ntq, q0 = qstart + (n - g * ntq) * kBQ;
+    const int h = hk * group + g, stage = n % NS;
+    copy_tile<ALIGNED, kBQ, DP, NT>(Qs + stage * kBQ * LD, q + b * st.v[0] + h * st.v[1], qss,
+                                    q0, sq, d);
+    copy_tile<ALIGNED, kBQ, DP, NT>(dOs + stage * kBQ * LD, dout + b * st.v[9] + h * st.v[10],
+                                    dss, q0, sq, d);
     const long long head_row0 = (static_cast<long long>(b) * hq + h) * sq;
-    for (int q0 = qstart; q0 < sq; q0 += kBQ) {
-      __syncthreads();  // the previous tile's products are done with Qs, dOs, Ps, dSs
-      load_tile<kBQ, DP>(Qs, qb, qss, q0, sq, d);
-      load_tile<kBQ, DP>(dOs, db, dss, q0, sq, d);
-      for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-        const int row = q0 + i;
-        Ls[i] = row < sq ? lse[head_row0 + row] : INFINITY;  // a padded row gives p = 0
-        Ds[i] = row < sq ? delta[head_row0 + row] : 0.f;
+    for (int i = threadIdx.x; i < 2 * kBQ; i += NT) {
+      const int r = i % kBQ, row = q0 + r;
+      const float* src = (i < kBQ ? lse : delta) + head_row0;
+      sc_mma::cp_async_4((i < kBQ ? Ls : Ds) + stage * kBQ + r, row < sq ? src + row : src,
+                         row < sq ? 4 : 0);
+    }
+  };
+  if (ntiles > 0) issue(0);
+  cp_async_commit();
+
+  const int row0 = ty * kTM;  // the thread's first kv row in the block
+  float acc[kTM][DP / kTX];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int c = 0; c < DP / kTX; ++c) acc[i][c] = 0.f;
+  const int pair = t / 32;  // the named barrier of this warp and its partner
+  const float scale_log2 = scale * kLog2e;
+
+  for (int n = 0; n < ntiles; ++n) {
+    const int g = n / ntq, q0 = qstart + (n - g * ntq) * kBQ, stage = n % NS;
+    if constexpr (NS == 1) {
+      if (n > 0) {
+        __syncthreads();  // every thread is done with tile n - 1
+        issue(n);
+        cp_async_commit();
       }
-      __syncthreads();
-      float s[2][8], dp[2][8];
-      dot_rows<2, DP>(s, Ks, Qs, ty, tx);    // Sᵀ = K·Qᵀ
-      dot_rows<2, DP>(dp, Vs, dOs, ty, tx);  // dPᵀ = V·dOᵀ
+    }
+    cp_async_wait<0>();  // tile n (and K, V)
+    __syncthreads();     // ... seen by every thread, and every thread is done with tile n - 1
+    if constexpr (NS == 2) {
+      if (n + 1 < ntiles) {  // tile n + 1, under tile n's math
+        issue(n + 1);
+        cp_async_commit();
+      }
+    }
+    const float* Qt = Qs + stage * kBQ * LD;
+    const float* dOt = dOs + stage * kBQ * LD;
+    const float* Lt = Ls + stage * kBQ;
+    const float* Dt = Ds + stage * kBQ;
+    float* Pt = Ps + row0 * kLDP;
+    float* dSt = dSs + row0 * kLDP;
+    const bool edge = q0 + kBQ > sq || (causal && k0 + BKV - 1 > q0);  // ragged or diagonal
+    float s[kTM][TN];
+    if (pv) {
+      score_tile<DP>(s, Ks + row0 * LD, Qt, tx);  // Sᵀ = K·Qᵀ
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int col = k0 + ty * 2 + i;   // the kv row is the score's column
+      for (int j = 0; j < TN; ++j) {
+        const int qc = tx + kTX * j;
+        const float l2 = Lt[qc] * kLog2e;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int qc = tx + 8 * j;
-          const bool keep = col < sk && (!causal || col <= q0 + qc);
-          const float p = keep ? expf(s[i][j] * scale - Ls[qc]) : 0.f;
-          Ps[(ty * 2 + i) * kLDP + qc] = p;
-          dSs[(ty * 2 + i) * kLDP + qc] = p * (dp[i][j] - Ds[qc]) * scale;
+        for (int i = 0; i < kTM; ++i) {
+          const int kr = k0 + row0 + i;  // the kv row is the score's row
+          const bool keep = !edge || (q0 + qc < sq && (!causal || kr <= q0 + qc));
+          const float p = exp2f(fmaf(s[i][j], scale_log2, -l2));
+          Pt[i * kLDP + qc] = keep ? p : 0.f;
         }
       }
-      __syncthreads();  // Pᵀ and dSᵀ are in place
-      acc_rows<2, DP>(dva, Ps, dOs, ty, tx);  // dv += Pᵀ·dO
-      acc_rows<2, DP>(dka, dSs, Qs, ty, tx);  // dk += dSᵀ·Q
+      sc_mma::named_barrier(1 + pair, 64);  // Pᵀ to the partner
+      acc_tile<DP>(acc, Pt, dOt, tx);       // dv += Pᵀ·dO
+    } else {
+      score_tile<DP>(s, Vs + row0 * LD, dOt, tx);  // dPᵀ = V·dOᵀ
+      sc_mma::named_barrier(1 + pair, 64);         // the partner's Pᵀ
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int qc = tx + kTX * j;
+        const float dl = Dt[qc];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i)
+          dSt[i * kLDP + qc] = Pt[i * kLDP + qc] * (s[i][j] - dl) * scale;
+      }
+      __syncwarp();                    // the row group's dSᵀ, written by its own warp
+      acc_tile<DP>(acc, dSt, Qt, tx);  // dk += dSᵀ·Q
     }
   }
+  cp_async_wait<0>();  // no copy outlives the block (K, V when ntiles = 0)
   const long long kv_row0 = (static_cast<long long>(b) * hkv + hk) * sk;
-  store_rows<2, DP>(dk, dka, kv_row0, k0, sk, d, ty, tx);
-  store_rows<2, DP>(dv, dva, kv_row0, k0, sk, d, ty, tx);
+  store_tile<DP>(pv ? dv : dk, acc, kv_row0, k0 + row0, sk, d, tx);
 }
 
 
@@ -576,61 +688,46 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
+template <int DP, bool ALIGNED>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq,
               int b, int hq, int hkv, int sq, int sk, int d, const Strides& st,
               float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto kernel = flash_bwd_dq_kernel<DP, ALIGNED>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-  const long long* s = st.v;
-  flash_bwd_dq_kernel<DP><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(b * hq, (sq + dq_rows<DP>() - 1) / dq_rows<DP>());
+  kernel<<<grid, dq_threads<DP>(), smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), hq, hq / hkv, sq,
-      sk, d, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], scale,
-      causal);
+      sk, d, st, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
+template <int DP, bool ALIGNED>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int b, int hq, int hkv, int sq, int sk, int d, const Strides& st,
                float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto kernel = flash_bwd_dkv_kernel<DP, ALIGNED>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sk + kBKV - 1) / kBKV, hkv, b);
-  const long long* s = st.v;
-  flash_bwd_dkv_kernel<DP><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(b * hkv, (sk + dkv_rows<DP>() - 1) / dkv_rows<DP>());
+  kernel<<<grid, dkv_threads<DP>(), smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), hq, hq / hkv, sq, sk, d,
-      s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], scale, causal);
+      static_cast<float*>(dv), hq, hq / hkv, sq, sk, d, st, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
-// The backward kernels' padded head dim: the smallest of {64, 96, 128, 160,
-// 256} that holds d, or 0 when none does.
-inline int padded_dim(int d) {
-  if (d <= 0) return 0;
-  if (d <= 64) return 64;
-  if (d <= 96) return 96;
-  if (d <= 128) return 128;
-  if (d <= 160) return 160;
-  if (d <= 256) return 256;
-  return 0;
-}
-
-// The forward's: d rounded up to a multiple of 16 up to 128, then 160 or 256.
+// Every kernel's padded head dim: d rounded up to a multiple of 16 up to
+// 128, then 160 or 256; 0 when d is out of range.
 inline int forward_dim(int d) {
   if (d <= 0 || d > 256) return 0;
   if (d <= 128) return (d + 15) / 16 * 16;
@@ -638,7 +735,7 @@ inline int forward_dim(int d) {
 }
 
 bool bad_shape(int b, int hq, int hkv, int d) {
-  return padded_dim(d) == 0 || hkv <= 0 || hq % hkv != 0 || hq > 65535 || b > 65535 ||
+  return forward_dim(d) == 0 || hkv <= 0 || hq % hkv != 0 || hq > 65535 || b > 65535 ||
          hkv > 65535;
 }
 
@@ -647,6 +744,14 @@ bool bad_shape(int b, int hq, int hkv, int d) {
 bool rows_aligned(const void* p, const long long* s, long long n0, long long n1, long long n2) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (n0 <= 1 || s[0] % 4 == 0) &&
          (n1 <= 1 || s[1] % 4 == 0) && (n2 <= 1 || s[2] % 4 == 0);
+}
+
+// The backward's inputs all on 16 bytes a row: q and do (b, hq, sq), k and
+// v (b, hkv, sk), strides as the entries take them.
+bool bwd_aligned(const void* q, const void* k, const void* v, const void* dout,
+                 const long long* s, int b, int hq, int hkv, int sq, int sk) {
+  return rows_aligned(q, s, b, hq, sq) && rows_aligned(k, s + 3, b, hkv, sk) &&
+         rows_aligned(v, s + 6, b, hkv, sk) && rows_aligned(dout, s + 9, b, hq, sq);
 }
 
 template <int DP>
@@ -703,12 +808,20 @@ int sc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dou
                     const long long* strides, float scale, int causal, int dtype,
                     cudaStream_t stream) {
   if (b <= 0 || hq <= 0 || sq <= 0) return 0;
-  if (dtype != 0 || bad_shape(b, hq, hkv, d)) return kInvalid;
+  if (dtype != 0 || bad_shape(b, hq, hkv, d) || static_cast<long long>(b) * hq > 0x7fffffffLL ||
+      (sq + 63) / 64 > 65535)
+    return kInvalid;
   const Strides st = copy_strides(strides, 12);
-  switch (padded_dim(d)) {
-#define SC_DQ(DP) \
-  case DP: return launch_dq<DP>(q, k, v, dout, lse, delta, dq, b, hq, hkv, sq, sk, d, st, scale, causal, stream);
-    SC_DQ(64) SC_DQ(96) SC_DQ(128) SC_DQ(160) SC_DQ(256)
+  const bool aligned = bwd_aligned(q, k, v, dout, strides, b, hq, hkv, sq, sk);
+  switch (forward_dim(d)) {
+#define SC_DQ(DP)                                                                            \
+  case DP:                                                                                   \
+    return aligned ? launch_dq<DP, true>(q, k, v, dout, lse, delta, dq, b, hq, hkv, sq, sk, \
+                                         d, st, scale, causal, stream)                       \
+                   : launch_dq<DP, false>(q, k, v, dout, lse, delta, dq, b, hq, hkv, sq, sk, \
+                                          d, st, scale, causal, stream);
+    SC_DQ(16) SC_DQ(32) SC_DQ(48) SC_DQ(64) SC_DQ(80) SC_DQ(96) SC_DQ(112)
+    SC_DQ(128) SC_DQ(160) SC_DQ(256)
 #undef SC_DQ
     default: return kInvalid;
   }
@@ -723,12 +836,20 @@ int sc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* do
                      const long long* strides, float scale, int causal, int dtype,
                      cudaStream_t stream) {
   if (b <= 0 || hkv <= 0 || sk <= 0) return 0;
-  if (dtype != 0 || bad_shape(b, hq, hkv, d)) return kInvalid;
+  if (dtype != 0 || bad_shape(b, hq, hkv, d) || static_cast<long long>(b) * hkv > 0x7fffffffLL ||
+      (sk + 31) / 32 > 65535)
+    return kInvalid;
   const Strides st = copy_strides(strides, 12);
-  switch (padded_dim(d)) {
-#define SC_DKV(DP) \
-  case DP: return launch_dkv<DP>(q, k, v, dout, lse, delta, dk, dv, b, hq, hkv, sq, sk, d, st, scale, causal, stream);
-    SC_DKV(64) SC_DKV(96) SC_DKV(128) SC_DKV(160) SC_DKV(256)
+  const bool aligned = bwd_aligned(q, k, v, dout, strides, b, hq, hkv, sq, sk);
+  switch (forward_dim(d)) {
+#define SC_DKV(DP)                                                                              \
+  case DP:                                                                                      \
+    return aligned ? launch_dkv<DP, true>(q, k, v, dout, lse, delta, dk, dv, b, hq, hkv, sq, sk, \
+                                          d, st, scale, causal, stream)                         \
+                   : launch_dkv<DP, false>(q, k, v, dout, lse, delta, dk, dv, b, hq, hkv, sq,   \
+                                           sk, d, st, scale, causal, stream);
+    SC_DKV(16) SC_DKV(32) SC_DKV(48) SC_DKV(64) SC_DKV(80) SC_DKV(96) SC_DKV(112)
+    SC_DKV(128) SC_DKV(160) SC_DKV(256)
 #undef SC_DKV
     default: return kInvalid;
   }

@@ -13,8 +13,10 @@ everything else the CUDA-core kernels of ``csrc/flash_attention.cu``
 (``cuda_core``). The kernels take q, k, v and do with any batch,
 head and row strides as long as each row is contiguous, so the model's
 transposed views, and the transposed gradient autograd hands the backward,
-reach them without a copy (the ``mma`` kernels copy rows 16 bytes at a
-time where :func:`cp_async_aligned` allows, element by element otherwise).
+reach them without a copy (every kernel copies rows 16 bytes at a time
+where they start on 16 bytes, element by element otherwise: the ``mma``
+kernels are told so by :func:`cp_async_aligned`, the CUDA-core entries
+test the pointers and strides themselves).
 :class:`FlashAttention` is the ``torch.autograd.Function`` around the pair:
 its forward saves ``q, k, v, o, lse``; its backward computes
 ``δ = rowsum(do ⊙ o)`` in PyTorch, as the reference does in jnp outside its

@@ -103,12 +103,15 @@ def attention_forward(
     positions: torch.Tensor,         # (s,)
     cache: dict | None = None,       # {"k", "v"}: (b, kv, S, hd)
     cache_pos: int | None = None,
+    write_cache: bool = False,
 ):
     """The mixer's output (b, s, d). With a cache and ``cache_pos``, k/v
     are written into the cache in place at ``cache_pos`` and q attends over
     it (plain ``ref.attention``, masked by the filled length), as
     ``layers.py:104-120``; without one, q attends over its own k/v through
-    the flash-attention forward (causal)."""
+    the flash-attention forward (causal). With ``write_cache`` it returns
+    ``(output, cache)`` as the reference does: the cache written in place,
+    or on the cache-less path the post-RoPE ``{"k", "v"}`` (b, kv, s, hd)."""
     b, s, _ = x.shape
     hp, kv, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.head_dim_
     q = (x @ p.wq).reshape(b, s, hp, hd).transpose(1, 2)
@@ -128,8 +131,10 @@ def attention_forward(
         out = kref.attention(q, ck, cv, causal=s > 1, kv_len=kv_len, q_offset=cache_pos)
     else:
         out = ops.flash_attention(q, k, v, causal=True)
-    out = out.transpose(1, 2).reshape(b, s, hp * hd)
-    return out @ p.wo
+        if write_cache:
+            cache = {"k": k, "v": v}
+    out = out.transpose(1, 2).reshape(b, s, hp * hd) @ p.wo
+    return (out, cache) if write_cache else out
 
 
 def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -152,9 +157,10 @@ class MLP(nn.Module):
         self.wi, self.wo = weight(wi), weight(wo)
 
 
-def init_mlp(cfg: ModelConfig, gen: torch.Generator) -> MLP:
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int | None = None) -> MLP:
+    """A SwiGLU / GeGLU MLP of width ``d_ff`` (default ``cfg.d_ff``)."""
     dt = torch_dtype(cfg)
-    d, ff = cfg.d_model, cfg.d_ff
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     wi = normal(gen, (d, 2 * ff), 1.0 / math.sqrt(d), dt)
     wo = normal(gen, (ff, d), 1.0 / math.sqrt(ff), dt)
     return MLP(wi, wo)
@@ -229,12 +235,13 @@ def _causal_depthwise_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return (out + b[None, None, :].float()).to(xbc.dtype)
 
 
-def make_ssm_cache(cfg: ModelConfig, batch: int, device: torch.device) -> dict:
+def make_ssm_cache(cfg: ModelConfig, batch: int, device: torch.device,
+                   dtype: torch.dtype | None = None) -> dict:
     """A zeroed Mamba-2 decode state: the last k - 1 inputs of each conv
     (``conv_x`` (batch, k-1, d_inner), ``conv_bc`` (batch, k-1, 2n)) and the
     f32 SSD state ``ssm`` (batch, h, head_dim, n); the convs' inputs in
-    the model dtype."""
-    dt = torch_dtype(cfg)
+    ``dtype`` (default the model dtype)."""
+    dt = dtype or torch_dtype(cfg)
     di, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
     k1 = cfg.ssm_conv_kernel - 1
     return {

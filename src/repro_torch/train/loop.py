@@ -37,6 +37,7 @@ class LoopConfig:
     data_dir: str = "data"
     seed: int = 0
     compress_grads: bool = False
+    log_every: int = 5  # the reference's field; unused there too
 
 
 def run_training(

@@ -454,15 +454,17 @@ def test_flash_bwd_kernels_match_cpu(dev, b, hq, hkv, sq, sk, d, causal, dtype):
           f"{(b, hq, hkv, sq, sk, d, causal)} {dtype}")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[1]])
-def test_flash_bwd_dq_repeats_bitwise(dev, case):
-    """The bf16 dq kernel is deterministic: 20 launches at the serving
-    oracle's shape and at the training head dim 80 give the same bits, and
-    lie within BWD_TOL of the CPU. Names the first launch that differs."""
+def test_flash_bwd_dq_repeats_bitwise(dev, case, dtype):
+    """Each dq kernel (bf16 on the tensor cores, f32 on the CUDA cores) is
+    deterministic: 20 launches at the serving oracle's shape and at the
+    training head dim 80 give the same bits, all counted under the dtype's
+    variant, and lie within BWD_TOL of the CPU. Names the first launch that
+    differs."""
     from repro_torch.kernels import flash_attention as fa
 
     b, hq, hkv, sq, sk, d, causal = case
-    dtype = torch.bfloat16
     q, k, v, do = (randn(shape, dtype, seed) for seed, shape in enumerate(
         ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, hq, sq, d)), 1))
     o, lse = flash_attention_fwd(q, k, v, causal=causal)
@@ -474,19 +476,21 @@ def test_flash_bwd_dq_repeats_bitwise(dev, case):
     close((want,), (first,), BWD_TOL[dtype], f"{case}")
     differs = [run for run in range(1, 20) if not torch.equal(
         fa._launch_dq(*args, delta, causal, 1.0 / d**0.5), first)]
-    assert ops.variant_launches["flash_bwd_dq/mma"] == ops.launches["flash_bwd_dq"] == 20
+    kind = "mma" if dtype == torch.bfloat16 else "cuda_core"
+    assert ops.variant_launches[f"flash_bwd_dq/{kind}"] == ops.launches["flash_bwd_dq"] == 20
     assert not differs, f"runs {differs} differ from run 0 (first: {differs[:1]})"
 
 
-def test_flash_bwd_dkv_repeats_bitwise(dev):
-    """The bf16 dk/dv kernel at the serving oracle's head dim 160 (two warps
-    per 16 kv rows, Pᵀ and dSᵀ exchanged in shared memory) is deterministic:
-    20 launches give the same bits, each within BWD_TOL of the CPU, all on
-    the tensor cores. Names the first launch that differs."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_dkv_repeats_bitwise(dev, dtype):
+    """Each dk/dv kernel at the serving oracle's head dim 160 (both split
+    across warps that exchange Pᵀ in shared memory: bf16 two warps per 16
+    kv rows, f32 two halves of the block) is deterministic: 20 launches give
+    the same bits, each within BWD_TOL of the CPU, all counted under the
+    dtype's variant. Names the first launch that differs."""
     from repro_torch.kernels import flash_attention as fa
 
     b, hq, hkv, sq, sk, d, causal = FLASH_CASES[0]
-    dtype = torch.bfloat16
     q, k, v, do = (randn(shape, dtype, seed) for seed, shape in enumerate(
         ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, hq, sq, d)), 1))
     o, lse = flash_attention_fwd(q, k, v, causal=causal)
@@ -499,8 +503,32 @@ def test_flash_bwd_dkv_repeats_bitwise(dev):
     differs = [run for run in range(1, 20) if not all(
         torch.equal(a, b) for a, b in zip(fa._launch_dkv(*args, delta, causal, 1.0 / d**0.5),
                                           first))]
-    assert ops.variant_launches["flash_bwd_dkv/mma"] == ops.launches["flash_bwd_dkv"] == 20
+    kind = "mma" if dtype == torch.bfloat16 else "cuda_core"
+    assert ops.variant_launches[f"flash_bwd_dkv/{kind}"] == ops.launches["flash_bwd_dkv"] == 20
     assert not differs, f"runs {differs} differ from run 0 (first: {differs[:1]})"
+
+
+@pytest.mark.parametrize("s", [63, 64, 65, 129])
+@pytest.mark.parametrize("d", [80, 100, 160, 256])
+def test_flash_bwd_f32_tile_edges(dev, d, s):
+    """The f32 backward's tiles (dq: 128 query rows up to head dim 112, 64
+    above; dk/dv: 64 kv rows, 32 at 256; 64-row tiles of the other side) at
+    their edges, causal with GQA and non-causal, at head dims on and
+    between its padded widths, with ``do`` a transposed view (as autograd
+    hands it back): dq, dk and dv within 2e-4 and 1e-4 of ||want||."""
+    for causal in (True, False):
+        q = randn((1, 8, s, d), torch.float32, 11)
+        k = randn((1, 2, s, d), torch.float32, 12)
+        v = randn((1, 2, s, d), torch.float32, 13)
+        do = randn((1, s, 8, d), torch.float32, 14).transpose(1, 2)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        ops.reset_launches()
+        got = flash_attention_bwd(*(t.to(dev) for t in (q, k, v, o, lse, do)), causal=causal)
+        expect_variant("flash_bwd_dq", torch.float32, d)
+        expect_variant("flash_bwd_dkv", torch.float32, d)
+        want = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        close(want, got, BWD_TOL[torch.float32], f"d {d} s {s} causal {causal}")
+        rel_close(want, got, 1e-4, f"d {d} s {s} causal {causal}")
 
 
 @pytest.mark.parametrize("d", [160, 256])
