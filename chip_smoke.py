@@ -6,8 +6,8 @@ Hopper card.
     python3 chip_smoke.py --only kernels,train   # card and build, then these
 
 Phases, in order; any failure raises and exits non-zero (``--only`` runs the
-card and build phases and then the named ones of kernels, serve, mamba and
-train, and prints no kernels or result line):
+card and build phases and then the named ones of kernels, mqo, serve, mamba
+and train, and prints no kernels or result line):
 
 1. card    — the card's name and power limit (``nvidia-smi``);
 2. build   — ``nvcc`` for every CUDA source of the port, all in parallel,
@@ -70,12 +70,25 @@ train, and prints no kernels or result line):
              budget, and ``pid_hist`` and the weighted encode launch; the
              probe's launch shapes are logged, and the probe is held and
              timed once more at the partitioned path's commonest shape;
-6. cpu     — the round, and the partitioned scenario (two incremental
-             rounds), at 4 MiB per root on
+6. mqo     — ``shared_prefix_workload(3)`` (a fact and a dim scan, three
+             views sharing a FILTER -> JOIN prefix: 23 nodes) realized at
+             512 MiB per root on the card, calibrated, merged there (19
+             nodes), then the part phase's incremental scenario unshared
+             and merged, the merged run traced (``obs.trace``): every view
+             bitwise equal unshared vs merged, each shared class once a
+             round, every round's catalog within budget, the FILTER, MAP,
+             AGG-encode and probe kernels launched, no gating delta-safety
+             finding, ``check_merged`` silent on the merge and
+             ``unsound-merge`` on the forged fixture, a valid Chrome trace
+             (written to a temporary directory); round times, flagged
+             sets, launches, peak memory and the plan audit logged;
+7. cpu     — the round, the partitioned scenario (two incremental rounds)
+             and the MQO merge's scenario, at 4 MiB per root on
              the card and on the CPU (plain versions): every stored MV and
-             partition bitwise equal, and both partitioned stores equal to
-             a full-recompute scenario on the card;
-7. serve   — stablelm-12b at full width and depth (40 layers, bf16,
+             partition bitwise equal, both partitioned stores equal to
+             a full-recompute scenario on the card, and the same merge
+             fingerprints on both;
+8. serve   — stablelm-12b at full width and depth (40 layers, bf16,
              random weights from a seeded generator on the card) answers 4
              requests of 512-token prompts with 32 greedy tokens each
              through ``greedy_generate``: RMSNorm must launch 81 times per
@@ -88,7 +101,7 @@ train, and prints no kernels or result line):
              cache-less forward (which runs the flash kernel) within 2e-2;
              then reduced stablelm-12b with GQA in f32, card against CPU:
              the same greedy tokens, logits within 1e-4;
-8. mamba   — mamba2-2.7b at full width and depth (64 layers, bf16, random
+9. mamba   — mamba2-2.7b at full width and depth (64 layers, bf16, random
              seeded weights) answers 4 requests of 512-token prompts with
              64 greedy tokens each, then prefills one 32768-token prompt:
              RMSNorm must launch 129 times per forward, the SSD scan 64
@@ -99,7 +112,7 @@ train, and prints no kernels or result line):
              f32 and 2 layers over 512 + 64 positions within 2e-2; reduced
              mamba2 card
              against CPU: the same greedy tokens, logits within 1e-4;
-9. train   — the training data (4 shards of 64 x 512 tokens, vocab
+10. train  — the training data (4 shards of 64 x 512 tokens, vocab
              50304, 4097-token rows) materialized by S/C on the card, then
              ``run_training`` of stablelm-3b at full width and depth (32
              layers, d_model 2560, bf16, f32 AdamW moments, remat
@@ -115,7 +128,7 @@ train, and prints no kernels or result line):
              training path. Then reduced stablelm-3b with GQA in
              f32, card against CPU (two train steps agree; the CPU launches
              no kernel), and a bitwise checkpoint save/restore round trip;
-10. a JSON line listing every kernel and variant with its launches over
+11. a JSON line listing every kernel and variant with its launches over
    every path, its times (event windows and device alone), its bound and
    its worst error over its cases; then the JSON result line.
 
@@ -134,6 +147,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -158,6 +172,11 @@ MAIN_SCENARIO_ROUNDS = 1
 # partitioned path, and hash64 lies on neither (as in the reference, only
 # partition._hash64 reaches it).
 ROUND_KERNELS = ("filter_gt", "map_derived", "fixed_point_encode", "probe_sorted")
+# The MQO path: three views over one fact / dim scan pair sharing a
+# FILTER -> JOIN prefix (23 nodes; the merge keeps 19).
+MQO_VIEWS = 3
+MQO_NODES = (23, 19)
+MQO_SHARED = ("v0_filter", "v0_join")
 # SASS functions of the two integer kernels, whose operation bound is their
 # instructions per row (read from the build) over the card's issue rate.
 HASH_SASS = {"hash64": "hash64_kernel", "pid_hist": "pid_hist_kernelILb1"}
@@ -1799,6 +1818,176 @@ def log_rounds(label, rep):
             f"skipped {len(r.run.skipped)} {sorted(r.run.skipped)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the MQO shared-prefix path
+# ---------------------------------------------------------------------------
+
+def realize_shared_prefix(mv, bytes_per_root, device, root):
+    """``shared_prefix_workload(MQO_VIEWS)`` realized on ``device`` and
+    calibrated (the calibration store under ``root`` is removed)."""
+    wl = mv.realize_workload(mv.shared_prefix_workload(n_views=MQO_VIEWS),
+                             bytes_per_root=bytes_per_root, device=device)
+    wl = mv.calibrate_sizes(wl, mv.DiskStore(root / f"calib_{device}", device=device))
+    shutil.rmtree(root / f"calib_{device}")
+    return wl
+
+
+def mqo_static_checks(wl, merged, spec):
+    """Delta-safety over the realized workload (no gating finding), merge
+    soundness of the real merge (nothing) and of the forged fixture
+    (``unsound-merge``), all typed on the card."""
+    from repro_torch.analysis import delta_safety, fixtures, gating, mqo_check
+
+    _, findings = delta_safety.analyze_workload(wl, spec=spec, device="cuda")
+    if gating(findings):
+        raise AssertionError(f"mqo: gating delta-safety findings {gating(findings)}")
+    unsound = mqo_check.check_merged(merged, device="cuda")
+    if unsound:
+        raise AssertionError(f"mqo: check_merged flags the real merge: {unsound}")
+    forged = mqo_check.check_merged(fixtures.forged_threshold_merge(device="cuda"),
+                                    device="cuda")
+    if not any(f.rule == "unsound-merge" for f in forged):
+        raise AssertionError(f"mqo: the forged merge is not unsound-merge: {forged}")
+    log(f"mqo: delta-safety {len(findings)} findings, none gating "
+        f"({sorted({f.rule for f in findings})}); check_merged silent on the merge, "
+        f"unsound-merge on the forged fixture")
+
+
+def check_once_per_round(label, rep, wl, merged):
+    """Each shared class runs once a round: its representative once in the
+    merged run, each member once in the unshared run."""
+    for r in rep.rounds:
+        counts = collections.Counter(r.run.executed)
+        for rep_name, members in merged.classes.items():
+            if len(members) < 2:
+                continue
+            names = ([rep_name] if label == "merged"
+                     else [wl.nodes[m].name for m in members])
+            runs = sum(counts[n] for n in names)
+            if runs != len(names):
+                raise AssertionError(f"mqo: {label} round {r.round_idx} ran class "
+                                     f"{rep_name} {runs} times, not {len(names)}")
+
+
+def mqo_phase(torch, core, mv, dp):
+    """The shared-prefix workload at 512 MiB per root on the card: merged
+    there, then the incremental scenario unshared and merged (the merged
+    one traced), held bitwise, linted and audited. Returns the launch and
+    variant counts of the two scenario runs together."""
+    from repro_torch.obs import trace as tr
+    from repro_torch.obs.audit import audit_scenario
+    from repro_torch.obs.export import validate_chrome_trace, to_chrome_trace, \
+        write_chrome_trace
+
+    root = HERE / "build" / "chip_smoke_mqo"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    spec = mv.UpdateSpec(**dict(SCENARIO, n_rounds=MAIN_SCENARIO_ROUNDS))
+    t0 = time.perf_counter()
+    wl = realize_shared_prefix(mv, MAIN_BYTES_PER_ROOT, "cuda", root)
+    calib_s = time.perf_counter() - t0
+    # a scan's calibrated size is its stored bytes: int64 key and rid, three
+    # f32 columns a row
+    scan_bytes = {n.name: n.size for n in wl.nodes if n.op == "SCAN"}
+    if set(scan_bytes.values()) != {float(N_ROWS * 28)}:
+        raise AssertionError(f"mqo: scans hold {scan_bytes} B, not {N_ROWS} rows each")
+    log(f"mqo: scans {scan_bytes} B ({N_ROWS} rows each), MV output "
+        f"{sum(n.size for n in wl.nodes):.4e} B unshared")
+    t0 = time.perf_counter()
+    merged = mv.merge_workload(wl, device="cuda")
+    merge_s = time.perf_counter() - t0
+    if (wl.n, merged.workload.n) != MQO_NODES or merged.shared != MQO_SHARED:
+        raise AssertionError(f"mqo: merge {wl.n} -> {merged.workload.n} nodes, "
+                             f"shared {merged.shared}")
+    log(f"mqo: calibrate {calib_s:.3f}s; merge on the card {merge_s:.3f}s: {wl.n} -> "
+        f"{merged.workload.n} nodes, MV output {sum(n.size for n in merged.workload.nodes):.4e} "
+        f"B merged, classes {[(k, v) for k, v in merged.classes.items() if len(v) > 1]}")
+    mqo_static_checks(wl, merged, spec)
+
+    runs = {}
+    for label, workload in (("unshared", wl), ("merged", merged.workload)):
+        store = mv.DiskStore(root / label, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        if label == "merged":
+            tr.clear()
+            tr.enable(True)
+        dp.reset_launches()
+        t0 = time.perf_counter()
+        rep = mv.run_scenario(workload, store, MAIN_BUDGET, spec, core.PAPER_COST_MODEL)
+        seconds = time.perf_counter() - t0
+        launches, variants = dict(dp.launches), dict(dp.variant_launches)
+        spans = tr.drain() if label == "merged" else []
+        tr.enable(False)
+        runs[label] = dict(rep=rep, store=store, seconds=seconds, launches=launches,
+                           variants=variants, spans=spans,
+                           peak_mem=torch.cuda.max_memory_allocated())
+        names = [n.name for n in workload.nodes]
+        for r in rep.rounds:
+            if not r.run.peak_catalog_bytes <= MAIN_BUDGET:
+                raise AssertionError(f"mqo: {label} round {r.round_idx}: peak catalog "
+                                     f"{r.run.peak_catalog_bytes} exceeds {MAIN_BUDGET}")
+            flagged = sorted(names[v] for v in r.plan.flagged)
+            log(f"mqo: {label} round {r.round_idx} ({r.mode}) elapsed {r.elapsed:.3f}s "
+                f"plan {r.plan_seconds:.3f}s read {r.run.read_seconds:.3f}s write "
+                f"{r.run.write_seconds:.3f}s executed {len(r.run.executed)} catalog_hits "
+                f"{r.run.catalog_hits} peak_catalog {r.run.peak_catalog_bytes:.0f} B "
+                f"flagged {flagged} (v0_filter {'v0_filter' in flagged}, v0_join "
+                f"{'v0_join' in flagged})")
+        log(f"mqo: {label} scenario {seconds:.3f}s max_memory_allocated "
+            f"{runs[label]['peak_mem']} B launches {launches} {variants}")
+        check_once_per_round(label, rep, wl, merged)
+    unlaunched = [k for k in ROUND_KERNELS if runs["merged"]["launches"][k] <= 0]
+    if unlaunched:
+        raise AssertionError(f"kernels never launched on the MQO path: {unlaunched}")
+    t0 = time.perf_counter()
+    mv.verify_merged_equivalence(merged, runs["merged"]["store"], runs["unshared"]["store"])
+    log(f"mqo: {wl.n} views bitwise equal unshared vs merged "
+        f"(verify {time.perf_counter() - t0:.3f}s); each shared class once a round; "
+        f"every round within budget")
+
+    spans = runs["merged"]["spans"]
+    problems = validate_chrome_trace(to_chrome_trace(spans))
+    if problems:
+        raise AssertionError(f"mqo: {len(problems)} trace problems: {problems[:5]}")
+    with tempfile.TemporaryDirectory() as td:
+        path = write_chrome_trace(Path(td) / "mqo_trace.json", spans)
+        log(f"mqo: Chrome trace valid: {len(spans)} spans, {path.stat().st_size} B")
+    audit = audit_scenario(merged.workload, runs["merged"]["rep"], spans,
+                           core.PAPER_COST_MODEL)
+    log(f"mqo: audit (PAPER_COST_MODEL): predicted {audit.predicted_s:.6f}s realized "
+        f"{audit.realized_s:.6f}s drift {audit.drift_s:+.6f}s over {len(audit.rows)} rows")
+    for (name, _), agg in sorted(audit.by_mv_partition().items()):
+        if name in MQO_SHARED:
+            log(f"mqo: audit {name}: {json.dumps(agg)}")
+    shutil.rmtree(root, ignore_errors=True)
+    return tuple({k: runs["unshared"][kind][k] + runs["merged"][kind][k]
+                  for k in runs["unshared"][kind]} for kind in ("launches", "variants"))
+
+
+def mqo_card_vs_cpu(core, mv, root, budget):
+    """The MQO merge at 4 MiB per root on the card and on the CPU: the same
+    fingerprints, and the merged scenario's stores bitwise equal."""
+    from repro_torch.mv import tableops as T
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        wl = realize_shared_prefix(mv, SMALL_BYTES_PER_ROOT, device, root)
+        merged = mv.merge_workload(wl, device=device)
+        store = mv.DiskStore(root / f"mqo_{device}", device=device)
+        mv.run_scenario(merged.workload, store, budget, mv.UpdateSpec(**SCENARIO),
+                        core.PAPER_COST_MODEL)
+        out[device] = (merged, store)
+    (card_m, card), (cpu_m, cpu) = out["cuda"], out["cpu"]
+    if card_m.fingerprints != cpu_m.fingerprints or card_m.classes != cpu_m.classes:
+        raise AssertionError("card and CPU merges differ")
+    if card.manifest() != cpu.manifest():
+        raise AssertionError("card and CPU merged stores hold other entries")
+    for name in card.manifest():
+        T.assert_tables_bitwise(cpu.read(name), card.read(name), f"mqo cpu vs card {name}")
+    log(f"cpu: 4 MiB per root MQO merge, identical fingerprints card vs CPU; "
+        f"{len(card.manifest())} merged entries bitwise equal after the scenario")
+
+
 def check_finite(torch, name, table):
     for col, v in table.items():
         if v.dtype.is_floating_point and not bool(torch.isfinite(v).all()):
@@ -1807,7 +1996,7 @@ def check_finite(torch, name, table):
 
 # The phases ``--only`` can run on their own (after the card and build
 # phases): those that need no other phase's state.
-ONLY_PHASES = ("kernels", "serve", "mamba", "train")
+ONLY_PHASES = ("kernels", "mqo", "serve", "mamba", "train")
 
 
 def parse_only(argv) -> tuple[str, ...] | None:
@@ -1835,12 +2024,16 @@ def fresh_train_root() -> Path:
 def run_only(torch, np, dp, dev, bw, inst_rate, per_row, only, t_start) -> int:
     """The phases of ``only``, in the script's order, each as the full run
     gives it; no kernels line and no result line (they need every phase)."""
+    import repro_torch.core as core
+    import repro_torch.mv as mv
+
     if "kernels" in only:
         t_phase = time.perf_counter()
         kernel_phase(torch, np, dp, dev, bw, inst_rate, per_row)
         model_kernel_phase(torch, dev, bw)
         log(f"phase kernels {time.perf_counter() - t_phase:.1f}s")
-    for name, run in (("serve", lambda: serve_phase(torch, np, dev)),
+    for name, run in (("mqo", lambda: mqo_phase(torch, core, mv, dp)),
+                      ("serve", lambda: serve_phase(torch, np, dev)),
                       ("mamba", lambda: mamba_phase(torch, np, dev)),
                       ("train", lambda: train_phase(torch, np, dev, fresh_train_root()))):
         if name in only:
@@ -1998,7 +2191,12 @@ def main() -> int:
         torch, dp, dev, p_uniq, p_n, f"{p_n}_into_{p_uniq}_P{N_PARTITIONS}")))
     log(f"phase part {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 6. card against CPU ------------------------------------------------------
+    # -- 6. the MQO shared-prefix path ---------------------------------------------
+    t_phase = time.perf_counter()
+    mqo_launches, mqo_variants = mqo_phase(torch, core, mv, dp)
+    log(f"phase mqo {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 7. card against CPU ------------------------------------------------------
     t_phase = time.perf_counter()
     small_budget = MAIN_BUDGET * SMALL_BYTES_PER_ROOT / MAIN_BYTES_PER_ROOT
     on_card = refresh_round(torch, core, mv, store_root / "small_cuda",
@@ -2032,25 +2230,26 @@ def main() -> int:
         f"{len(card_store.manifest())} partition entries bitwise equal card vs "
         f"CPU; both reassemble to the full-recompute scenario "
         f"(card {small['cuda']['seconds']:.3f}s, CPU {small['cpu']['seconds']:.3f}s)")
+    mqo_card_vs_cpu(core, mv, store_root, small_budget)
     shutil.rmtree(store_root, ignore_errors=True)
     log(f"phase cpu {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 7. serving -----------------------------------------------------------------
+    # -- 8. serving -----------------------------------------------------------------
     t_phase = time.perf_counter()
     serve_launches, oracle_launches = serve_phase(torch, np, dev)
     log(f"phase serve {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 8. Mamba-2 serving -------------------------------------------------------
+    # -- 9. Mamba-2 serving -------------------------------------------------------
     t_phase = time.perf_counter()
     mamba_launches = mamba_phase(torch, np, dev)
     log(f"phase mamba {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 9. training ----------------------------------------------------------------
+    # -- 10. training ----------------------------------------------------------------
     t_phase = time.perf_counter()
     train_launches = train_phase(torch, np, dev, fresh_train_root())
     log(f"phase train {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 10. kernels line -----------------------------------------------------------
+    # -- 11. kernels line -----------------------------------------------------------
     # Each kernel reports the times of the case its path's calls take (the
     # data plane's 16.7M-row columns, RMSNorm on the bf16 serving prefill,
     # the flash kernels on the bf16 training shape, the SSD scan on the bf16
@@ -2075,14 +2274,17 @@ def main() -> int:
               for suffix, variant in (("", "mma"), ("_cuda_core", "cuda_core"))}
     for name, (kernel, variant) in row_of.items():
         model_launches[name] = model_launches.pop(f"{kernel}/{variant}")
-    # The data-plane kernels' launches: the main path's and the partitioned
-    # path's; the scalar compare's are its variant's share of filter_gt's.
-    dp_launches = {k: main["launches"][k] + part_launches[k] for k in main["launches"]}
+    # The data-plane kernels' launches: the main path's, the partitioned
+    # path's and the MQO path's (its unshared and merged scenarios); the
+    # scalar compare's are its variant's share of filter_gt's.
+    dp_launches = {k: main["launches"][k] + part_launches[k] + mqo_launches[k]
+                   for k in main["launches"]}
     dp_launches["filter_gt_scalar"] = (main["variants"]["filter_gt/scalar"]
-                                       + part_variants["filter_gt/scalar"])
+                                       + part_variants["filter_gt/scalar"]
+                                       + mqo_variants["filter_gt/scalar"])
     if dp_launches["filter_gt_scalar"]:   # every column of these paths has a vector
         raise AssertionError(f"{dp_launches['filter_gt_scalar']} FILTER launches of the "
-                             "main and P=8 paths took the scalar compare")
+                             "main, P=8 and MQO paths took the scalar compare")
     dp_launches["filter_gt"] -= dp_launches["filter_gt_scalar"]
     row_of["filter_gt_scalar"] = ("filter_gt", None)
     headline = {"filter_gt": "f32", "filter_gt_scalar": "f32_unaligned_scalar",
@@ -2115,6 +2317,7 @@ def main() -> int:
             device_ms=row["device_ms"], library_device_ms=row["library_device_ms"],
         ))
     log(f"launches: main path {main['launches']}; partitioned path {part_launches}; "
+        f"MQO path {mqo_launches}; "
         f"serving {serve_launches}; serving oracle {oracle_launches}; Mamba-2 serving, "
         f"long prefill, oracle {list(mamba_launches)}; training {train_launches}")
     log(f"total {time.perf_counter() - t_start:.1f}s")

@@ -1,7 +1,9 @@
-"""Static analysis shared by the planner: the ``Finding`` model
-(``findings``) and plan feasibility verify/repair (``plan_check``), which
-``core.altopt`` reuses. This package root stays lightweight so the planner
-can import it without cycles."""
+"""Static analysis: the ``Finding`` model (``findings``), plan feasibility
+verify/repair (``plan_check``, which ``core.altopt`` reuses), delta-safety
+typing over the operator IR (``delta_safety``), MQO merge soundness
+(``mqo_check``) and its must-fire fixtures (``fixtures``). Import the passes
+as submodules: this package root stays lightweight so the planner can import
+it without cycles."""
 from .findings import (
     Finding,
     GATING_LEVELS,

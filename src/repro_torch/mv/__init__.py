@@ -1,7 +1,8 @@
 """S/C materialization engine on PyTorch: the data plane and its CUDA
 kernels, the table operators, the Memory Catalog, storage, the Controller,
-the refresh engine and simulator, and the incremental and hash-partitioned
-(full-vs-incremental update) refresh subsystem."""
+the refresh engine and simulator, the incremental and hash-partitioned
+(full-vs-incremental update) refresh subsystem, and the operator IR with its
+multi-query optimisation (``ir``, ``mqo``)."""
 from . import dataplane
 from .catalog import CatalogOverflowError, MemoryCatalog
 from .engine import ScheduleCore, ThreadedEngine, simulate_events
@@ -15,6 +16,13 @@ from .incremental import (
     run_scenario,
     simulate_scenario,
     verify_scenario_equivalence,
+)
+from .mqo import (
+    MergedWorkload,
+    merge_workload,
+    node_fingerprints,
+    shared_prefix_workload,
+    verify_merged_equivalence,
 )
 from .partition import (
     PartitionMap,
@@ -75,6 +83,11 @@ __all__ = [
     "run_scenario",
     "simulate_scenario",
     "verify_scenario_equivalence",
+    "MergedWorkload",
+    "merge_workload",
+    "node_fingerprints",
+    "shared_prefix_workload",
+    "verify_merged_equivalence",
     "simulate",
     "speedup",
     "SimReport",

@@ -2,7 +2,8 @@
 PyTorch versions, which ``tests/test_torch_dataplane.py`` and
 ``tests/test_torch_model_kernels.py`` hold against the JAX package) at
 ragged sizes, the wrappers' refusals, the launch counters, a small refresh
-round and a small partitioned incremental scenario card against CPU, and
+round, a small partitioned incremental scenario and a small MQO-merged
+scenario card against CPU, schema inference on the card (no launch), and
 small-model serving (dense and Mamba-2) and training steps card against
 CPU. The data-plane kernels are compared bitwise; RMSNorm, the flash forward
 and the SSD scan within the JAX kernel tests' tolerances (1e-5 / 2e-2,
@@ -26,6 +27,7 @@ from repro_torch.kernels import flash_attention_bwd, flash_attention_fwd, ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.mv import dataplane as dp
+from repro_torch.mv import ir as mvir
 from repro_torch.mv import tableops as T
 
 pytestmark = pytest.mark.cuda
@@ -277,6 +279,55 @@ def test_small_partitioned_scenario_card_equals_cpu(dev, tmp_path):
     assert card.manifest() == runs["cpu"][1].manifest()
     for name in card.manifest():
         T.assert_tables_bitwise(runs["cpu"][1].read(name), card.read(name), name)
+
+
+def test_infer_schemas_on_the_card_launches_nothing_and_equals_cpu(dev):
+    """Schema inference runs every operator on zero-row tensors on the
+    card: the wrappers return before launching, and the schemas are the
+    CPU's."""
+    workloads = [mv.generate_workload(12, seed=4), mv.shared_prefix_workload(n_views=4)]
+    for wl in workloads:
+        ir = mvir.lift_workload(wl)
+        dp.reset_launches()
+        on_card = mvir.infer_schemas(ir, device=dev)
+        assert all(v == 0 for v in dp.launches.values()), dp.launches
+        assert all(v == 0 for v in dp.variant_launches.values())
+        on_cpu = mvir.infer_schemas(ir, device="cpu")
+        assert [n.schema for n in on_card.nodes] == [n.schema for n in on_cpu.nodes]
+        assert all(n.schema is not None for n in on_card.nodes)
+
+
+def test_small_merged_scenario_card_equals_cpu(dev, tmp_path):
+    """The shared-prefix workload at 1 MiB per root, merged on each device:
+    the same fingerprints and classes, each shared class once a round, and
+    the merged stores bitwise equal card against CPU."""
+    spec = dict(mode="incremental", ingest_frac=0.1, update_frac=0.05,
+                delete_frac=0.02, n_rounds=2)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        wl = mv.realize_workload(mv.shared_prefix_workload(n_views=3),
+                                 bytes_per_root=1 << 20, device=device)
+        wl = mv.calibrate_sizes(wl, mv.DiskStore(tmp_path / f"c_{device}", device=device))
+        merged = mv.merge_workload(wl, device=device)
+        budget = sum(n.size for n in merged.workload.nodes) * 0.4
+        store = mv.DiskStore(tmp_path / device, device=device)
+        dp.reset_launches()
+        rep = mv.run_scenario(merged.workload, store, budget, mv.UpdateSpec(**spec),
+                              core.PAPER_COST_MODEL)
+        runs[device] = (merged, store, rep, dict(dp.launches))
+    merged, card, rep, launches = runs["cuda"]
+    cpu_merged, cpu_store, _, cpu_launches = runs["cpu"]
+    assert merged.fingerprints == cpu_merged.fingerprints
+    assert merged.classes == cpu_merged.classes
+    assert merged.shared == ("v0_filter", "v0_join")
+    for r in rep.rounds:
+        assert all(r.run.executed.count(name) == 1 for name in merged.shared)
+    assert all(launches[k] > 0 for k in ("filter_gt", "map_derived",
+                                         "fixed_point_encode", "probe_sorted"))
+    assert all(v == 0 for v in cpu_launches.values())
+    assert card.manifest() == cpu_store.manifest()
+    for name in card.manifest():
+        T.assert_tables_bitwise(cpu_store.read(name), card.read(name), name)
 
 
 # ---------------------------------------------------------------------------

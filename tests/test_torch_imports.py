@@ -3,6 +3,7 @@
 entry points default to the card and refuse to run without one, and on CPU
 tensors it never reaches a CUDA kernel."""
 import ast
+import importlib.util
 import os
 import pkgutil
 import subprocess
@@ -21,7 +22,10 @@ from repro_torch.launch import train as launch_train
 from repro_torch.train.loop import LoopConfig, run_training
 from repro_torch import models as tm
 from repro_torch.serve import greedy_generate
+from repro_torch.analysis import delta_safety, fixtures, mqo_check
 from repro_torch.mv import dataplane as dp
+from repro_torch.mv import ir as mvir
+from repro_torch.mv import mqo
 from repro_torch.mv import tableops as T
 from repro_torch.mv import workloads as W
 from repro_torch.mv.partition import partition_table
@@ -36,6 +40,14 @@ _MAMBA = tcfg.get_config("mamba2-2.7b").reduced()
 
 def _small_cpu_model():
     return tm.init_params(_SMALL, torch.Generator(), device="cpu")
+
+
+def _sc_trace_torch():
+    spec = importlib.util.spec_from_file_location(
+        "sc_trace_torch", ROOT / "tools" / "sc_trace_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def port_modules():
@@ -76,7 +88,7 @@ def _imported_roots(path: Path) -> set[str]:
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
-    + ["chip_smoke.py"],
+    + ["chip_smoke.py", "tools/sc_trace_torch.py"],
 )
 def test_no_jax_or_repro_import_in_source(path):
     roots = _imported_roots(ROOT / path)
@@ -105,12 +117,23 @@ def test_no_jax_or_repro_import_in_source(path):
     lambda tmp: launch_train.main(["--reduced", "--steps", "1",
                                    "--ckpt-dir", str(tmp / "ck"),
                                    "--data-dir", str(tmp / "d")]),
+    lambda tmp: mvir.infer_schemas(mvir.lift_workload(W.generate_workload(4, seed=1))),
+    lambda tmp: mvir.scan_table_schema(4).empty_table(),
+    lambda tmp: mqo.merge_workload(mqo.shared_prefix_workload(2)),
+    lambda tmp: delta_safety.analyze_workload(W.generate_workload(4, seed=1)),
+    lambda tmp: mqo_check.check_merged(fixtures.forged_threshold_merge(device="cpu")),
+    lambda tmp: fixtures.forged_threshold_merge(),
+    lambda tmp: fixtures.genuine_shared_prefix_merge(),
+    lambda tmp: _sc_trace_torch().main(["demo", "--out", str(tmp / "d")]),
 ], ids=["realize_workload", "make_base_table", "empty_like", "DiskStore",
         "table_from_numpy", "init_params", "make_cache", "init_params_mamba2",
         "make_cache_mamba2", "greedy_generate",
         "params_from_reference", "train_state_from_reference",
         "materialize_dataset", "build_pipeline_workload", "BatchIterator",
-        "run_training", "launch.train"])
+        "run_training", "launch.train", "infer_schemas", "Schema.empty_table",
+        "merge_workload", "analyze_workload", "check_merged",
+        "forged_threshold_merge", "genuine_shared_prefix_merge",
+        "sc_trace_torch.demo"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
