@@ -6,8 +6,8 @@ Hopper card.
     python3 chip_smoke.py --only kernels,train   # card and build, then these
 
 Phases, in order; any failure raises and exits non-zero (``--only`` runs the
-card and build phases and then the named ones of kernels, mqo, serve, mamba
-and train, and prints no kernels or result line):
+card and build phases and then the named ones of kernels, multihost, mqo,
+serve, mamba and train, and prints no kernels or result line):
 
 1. card    — the card's name and power limit (``nvidia-smi``);
 2. build   — ``nvcc`` for every CUDA source of the port, all in parallel,
@@ -55,8 +55,9 @@ and train, and prints no kernels or result line):
              dq + dk/dv device time beside SDPA's backward, and the
              forward+backward pair against SDPA's;
 4. main    — one S/C refresh round: ``generate_workload(12, seed=4)``
-             realized at 512 MiB per root on the card, calibrated, solved
-             for a 1.6 GB Memory Catalog, run serially and with S/C; the
+             realized at 512 MiB per root on the card, run serially (the
+             serial run is the calibration run: its manifest sizes the
+             nodes), solved for a 1.6 GB Memory Catalog, run with S/C; the
              S/C output must be bitwise the serial output, the catalog
              within budget, and every kernel of the round launched; the S/C
              round then runs once more under ``torch.profiler`` for the
@@ -70,9 +71,31 @@ and train, and prints no kernels or result line):
              budget, and ``pid_hist`` and the weighted encode launch; the
              probe's launch shapes are logged, and the probe is held and
              timed once more at the partitioned path's commonest shape;
-6. mqo     — ``shared_prefix_workload(3)`` (a fact and a dim scan, three
+             the P = 8 store is kept for the next phase;
+6. multihost — the same scenario's P = 8 partitions hash-placed on 4
+             hosts (``run_multihost_scenario``, the process backend), 0.4
+             GB of catalog each, no straggler speculation: run A
+             fault-free, run B with host 1 killed after its first task of
+             the incremental round; each in a fresh interpreter
+             (``--multihost-child``) whose coordinator touches CUDA only
+             after the pool forked its hosts, so the four hosts compute on
+             the card, each with its own context. Both stores bitwise equal
+             to the P = 8 store; B loses host 1 and re-dispatches only from
+             it, A nothing; every surviving host's catalog empty at each
+             round's end and within its budget at its peak; the hosts'
+             shipped launches must hold filter_gt, map_derived,
+             fixed_point_encode (weighted too), probe_sorted and pid_hist.
+             Round walls beside the single-host P = 8 rounds, per-host
+             tasks, hits and peaks, re-dispatches, the card's peak used
+             memory (``nvidia-smi``, every process), the children's
+             start-up and the verify seconds are logged (``--only
+             multihost`` calibrates in memory and builds its own P = 8
+             store);
+7. mqo     — ``shared_prefix_workload(3)`` (a fact and a dim scan, three
              views sharing a FILTER -> JOIN prefix: 23 nodes) realized at
-             512 MiB per root on the card, calibrated, merged there (19
+             512 MiB per root on the card, calibrated in memory (the sizes
+             ``calibrate_sizes`` gives, checked at 4 MiB in phase 8, without
+             writing every MV), merged there (19
              nodes), then the part phase's incremental scenario unshared
              and merged, the merged run traced (``obs.trace``): every view
              bitwise equal unshared vs merged, each shared class once a
@@ -82,13 +105,13 @@ and train, and prints no kernels or result line):
              ``unsound-merge`` on the forged fixture, a valid Chrome trace
              (written to a temporary directory); round times, flagged
              sets, launches, peak memory and the plan audit logged;
-7. cpu     — the round, the partitioned scenario (two incremental rounds)
+8. cpu     — the round, the partitioned scenario (two incremental rounds)
              and the MQO merge's scenario, at 4 MiB per root on
              the card and on the CPU (plain versions): every stored MV and
              partition bitwise equal, both partitioned stores equal to
              a full-recompute scenario on the card, and the same merge
              fingerprints on both;
-8. serve   — stablelm-12b at full width and depth (40 layers, bf16,
+9. serve   — stablelm-12b at full width and depth (40 layers, bf16,
              random weights from a seeded generator on the card) answers 4
              requests of 512-token prompts with 32 greedy tokens each
              through ``greedy_generate``: RMSNorm must launch 81 times per
@@ -101,7 +124,7 @@ and train, and prints no kernels or result line):
              cache-less forward (which runs the flash kernel) within 2e-2;
              then reduced stablelm-12b with GQA in f32, card against CPU:
              the same greedy tokens, logits within 1e-4;
-9. mamba   — mamba2-2.7b at full width and depth (64 layers, bf16, random
+10. mamba  — mamba2-2.7b at full width and depth (64 layers, bf16, random
              seeded weights) answers 4 requests of 512-token prompts with
              64 greedy tokens each, then prefills one 32768-token prompt:
              RMSNorm must launch 129 times per forward, the SSD scan 64
@@ -112,7 +135,7 @@ and train, and prints no kernels or result line):
              f32 and 2 layers over 512 + 64 positions within 2e-2; reduced
              mamba2 card
              against CPU: the same greedy tokens, logits within 1e-4;
-10. train  — the training data (4 shards of 64 x 512 tokens, vocab
+11. train  — the training data (4 shards of 64 x 512 tokens, vocab
              50304, 4097-token rows) materialized by S/C on the card, then
              ``run_training`` of stablelm-3b at full width and depth (32
              layers, d_model 2560, bf16, f32 AdamW moments, remat
@@ -128,8 +151,9 @@ and train, and prints no kernels or result line):
              training path. Then reduced stablelm-3b with GQA in
              f32, card against CPU (two train steps agree; the CPU launches
              no kernel), and a bitwise checkpoint save/restore round trip;
-11. a JSON line listing every kernel and variant with its launches over
-   every path, its times (event windows and device alone), its bound and
+12. a JSON line listing every kernel and variant with its launches over
+   every path (the multi-host path's also alone: ``multihost_launches``),
+   its times (event windows and device alone), its bound and
    its worst error over its cases; then the JSON result line.
 
 Exits with 2, printing no result, when CUDA is unavailable or the port's
@@ -172,6 +196,15 @@ MAIN_SCENARIO_ROUNDS = 1
 # partitioned path, and hash64 lies on neither (as in the reference, only
 # partition._hash64 reaches it).
 ROUND_KERNELS = ("filter_gt", "map_derived", "fixed_point_encode", "probe_sorted")
+# The multi-host path: the P = 8 scenario's partitions hash-placed on 4
+# forked hosts sharing the card, each with a quarter of the paper's 1.6 GB
+# catalog; run B kills host 1 after its first task of the incremental round.
+MH_HOSTS = 4
+MH_HOST_BUDGET = MAIN_BUDGET / MH_HOSTS
+MH_KILL = dict(kind="kill", host=1, round_idx=1, after_tasks=1)
+MH_KERNELS = (*ROUND_KERNELS, "pid_hist", "fixed_point_encode/weighted")
+MH_ROUND_TIMEOUT = 600.0      # a stuck host raises well inside the script's limit
+MH_CHILD_TIMEOUT = 900.0
 # The MQO path: three views over one fact / dim scan pair sharing a
 # FILTER -> JOIN prefix (23 nodes; the merge keeps 19).
 MQO_VIEWS = 3
@@ -1691,8 +1724,40 @@ def on_device_fns(torch, wl, dev_type):
     return dataclasses.replace(wl, nodes=[wrap(n) for n in wl.nodes])
 
 
+def sized_by(mv, wl, nbytes):
+    """``wl`` with each node sized as ``calibrate_sizes`` sizes it from the
+    bytes its output took (``nbytes[name]``; at least 1 B)."""
+    return mv.Workload(wl.name, [
+        dataclasses.replace(n, size=max(float(nbytes.get(n.name, n.size)), 1.0))
+        for n in wl.nodes], dict(wl.meta))
+
+
+def calibrate_in_memory(mv, wl):
+    """``calibrate_sizes`` without its store: every node computed once, in
+    topological order on the workload's device, its output's bytes recorded
+    and the output dropped after its last child ran (no write, no fsync)."""
+    from repro_torch.mv.storage import table_nbytes
+
+    graph = wl.to_graph()
+    left = [len(graph.children[v]) for v in range(wl.n)]
+    outs, nbytes = {}, {}
+    for v in graph.topological_order():
+        node = wl.nodes[v]
+        outs[v] = node.fn([outs[p] for p in node.parents])
+        nbytes[node.name] = table_nbytes(outs[v])
+        for p in node.parents:
+            left[p] -= 1
+            if left[p] == 0:
+                del outs[p]
+        if left[v] == 0:
+            del outs[v]
+    return sized_by(mv, wl, nbytes)
+
+
 def refresh_round(torch, core, mv, root, bytes_per_root, budget, device):
-    """Realize, calibrate, solve, then a serial and an S/C run. Returns the
+    """Realize, then a serial run, which is also the calibration run
+    (``calibrate_sizes`` runs the same serial plan with no catalog: its
+    manifest sizes the workload), then solve and an S/C run. Returns the
     stores, reports, plan and launch counts of each step."""
     from repro_torch.mv import dataplane as dp
 
@@ -1701,14 +1766,11 @@ def refresh_round(torch, core, mv, root, bytes_per_root, budget, device):
     wl = on_device_fns(torch, wl, torch.device(device).type)
     dp.reset_launches()
     with probe_shapes(dp) as shapes:
-        t0 = time.perf_counter()
-        wl = mv.calibrate_sizes(wl, mv.DiskStore(root / "calib", device=device))
-        calib_s = time.perf_counter() - t0
-        shutil.rmtree(root / "calib")
+        serial = mv.DiskStore(root / "serial", device=device)
+        serial_rep = mv.Controller(wl, serial, 0.0).run(core.serial_plan(wl.to_graph()))
+        wl = sized_by(mv, wl, serial.manifest())
         graph = wl.to_graph()
         plan = core.solve(graph, budget=budget)
-        serial = mv.DiskStore(root / "serial", device=device)
-        serial_rep = mv.Controller(wl, serial, 0.0).run(core.serial_plan(graph))
         before_sc = dict(dp.launches)
         sc = mv.DiskStore(root / "sc", device=device)
         sc_rep = mv.Controller(wl, sc, budget).run(plan)
@@ -1723,7 +1785,7 @@ def refresh_round(torch, core, mv, root, bytes_per_root, budget, device):
         raise AssertionError(
             f"peak catalog {sc_rep.peak_catalog_bytes} exceeds budget {budget}")
     return dict(wl=wl, graph=graph, plan=plan, serial=serial, sc=sc,
-                serial_rep=serial_rep, sc_rep=sc_rep, calib_s=calib_s,
+                serial_rep=serial_rep, sc_rep=sc_rep,
                 launches=launches, sc_launches=sc_launches, names=names,
                 variants=dict(dp.variant_launches), probe_shapes=shapes)
 
@@ -1822,11 +1884,15 @@ def log_rounds(label, rep):
 # phase 6: the MQO shared-prefix path
 # ---------------------------------------------------------------------------
 
-def realize_shared_prefix(mv, bytes_per_root, device, root):
+def realize_shared_prefix(mv, bytes_per_root, device, root=None):
     """``shared_prefix_workload(MQO_VIEWS)`` realized on ``device`` and
-    calibrated (the calibration store under ``root`` is removed)."""
+    calibrated: by ``calibrate_sizes`` into a store under ``root`` (then
+    removed), or without ``root`` in memory (``calibrate_in_memory``, the
+    same sizes without writing every MV)."""
     wl = mv.realize_workload(mv.shared_prefix_workload(n_views=MQO_VIEWS),
                              bytes_per_root=bytes_per_root, device=device)
+    if root is None:
+        return calibrate_in_memory(mv, wl)
     wl = mv.calibrate_sizes(wl, mv.DiskStore(root / f"calib_{device}", device=device))
     shutil.rmtree(root / f"calib_{device}")
     return wl
@@ -1884,7 +1950,7 @@ def mqo_phase(torch, core, mv, dp):
     root.mkdir(parents=True)
     spec = mv.UpdateSpec(**dict(SCENARIO, n_rounds=MAIN_SCENARIO_ROUNDS))
     t0 = time.perf_counter()
-    wl = realize_shared_prefix(mv, MAIN_BYTES_PER_ROOT, "cuda", root)
+    wl = realize_shared_prefix(mv, MAIN_BYTES_PER_ROOT, "cuda")
     calib_s = time.perf_counter() - t0
     # a scan's calibrated size is its stored bytes: int64 key and rid, three
     # f32 columns a row
@@ -1899,7 +1965,7 @@ def mqo_phase(torch, core, mv, dp):
     if (wl.n, merged.workload.n) != MQO_NODES or merged.shared != MQO_SHARED:
         raise AssertionError(f"mqo: merge {wl.n} -> {merged.workload.n} nodes, "
                              f"shared {merged.shared}")
-    log(f"mqo: calibrate {calib_s:.3f}s; merge on the card {merge_s:.3f}s: {wl.n} -> "
+    log(f"mqo: calibrate in memory {calib_s:.3f}s; merge on the card {merge_s:.3f}s: {wl.n} -> "
         f"{merged.workload.n} nodes, MV output {sum(n.size for n in merged.workload.nodes):.4e} "
         f"B merged, classes {[(k, v) for k, v in merged.classes.items() if len(v) > 1]}")
     mqo_static_checks(wl, merged, spec)
@@ -1972,6 +2038,10 @@ def mqo_card_vs_cpu(core, mv, root, budget):
     out = {}
     for device in ("cuda", "cpu"):
         wl = realize_shared_prefix(mv, SMALL_BYTES_PER_ROOT, device, root)
+        in_memory = realize_shared_prefix(mv, SMALL_BYTES_PER_ROOT, device)
+        if [n.size for n in in_memory.nodes] != [n.size for n in wl.nodes]:
+            raise AssertionError(f"calibrate_in_memory on {device} sized the MQO "
+                                 "workload other than calibrate_sizes")
         merged = mv.merge_workload(wl, device=device)
         store = mv.DiskStore(root / f"mqo_{device}", device=device)
         mv.run_scenario(merged.workload, store, budget, mv.UpdateSpec(**SCENARIO),
@@ -1984,8 +2054,193 @@ def mqo_card_vs_cpu(core, mv, root, budget):
         raise AssertionError("card and CPU merged stores hold other entries")
     for name in card.manifest():
         T.assert_tables_bitwise(cpu.read(name), card.read(name), f"mqo cpu vs card {name}")
-    log(f"cpu: 4 MiB per root MQO merge, identical fingerprints card vs CPU; "
+    log(f"cpu: 4 MiB per root MQO merge, identical fingerprints card vs CPU "
+        f"(in-memory calibration equal to calibrate_sizes on both); "
         f"{len(card.manifest())} merged entries bitwise equal after the scenario")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: multi-host partitioned refresh, forked hosts on the card
+# ---------------------------------------------------------------------------
+
+def multihost_child(args) -> int:
+    """``chip_smoke.py --multihost-child JSON``: one multi-host scenario in
+    this fresh interpreter, whose coordinator touches CUDA only after the
+    pool has forked its hosts. The workload is realized on the card with the
+    sizes the parent calibrated; prints the report as one JSON line."""
+    t_start = time.perf_counter()
+    sys.path.insert(0, str(HERE / "src"))
+    import torch
+    import repro_torch.core as core
+    import repro_torch.mv as mv
+
+    cfg = json.loads(args)
+    wl = mv.realize_workload(mv.generate_workload(12, seed=4),
+                             bytes_per_root=MAIN_BYTES_PER_ROOT, device="cuda")
+    if len(cfg["sizes"]) != wl.n:
+        raise AssertionError(f"{len(cfg['sizes'])} sizes for {wl.n} nodes")
+    wl = mv.Workload(wl.name, [dataclasses.replace(n, size=float(s))
+                               for n, s in zip(wl.nodes, cfg["sizes"])], dict(wl.meta))
+    store = mv.DiskStore(cfg["root"], device="cuda")
+    if torch.cuda.is_initialized():
+        raise AssertionError("the coordinator initialised CUDA before the fork")
+    fault = (mv.FaultPlan((mv.FaultAction(**cfg["fault"]),)) if cfg["fault"]
+             else None)
+    import_s = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    rep = mv.run_multihost_scenario(
+        wl, N_PARTITIONS, store, [MH_HOST_BUDGET] * MH_HOSTS,
+        mv.UpdateSpec(**dict(SCENARIO, n_rounds=MAIN_SCENARIO_ROUNDS)),
+        core.PAPER_COST_MODEL, placement="hash", backend="process",
+        fault_plan=fault, straggler=mv.StragglerConfig(speculate=False),
+        round_timeout=MH_ROUND_TIMEOUT)
+    print(json.dumps(dict(
+        import_s=import_s, scenario_s=time.perf_counter() - t0,
+        backend=rep.backend, placement=rep.placement, hosts_lost=rep.hosts_lost,
+        launches=rep.launches,
+        redispatches=[dataclasses.asdict(r) for r in rep.redispatches],
+        rounds=[dict(round_idx=r.round_idx, mode=r.mode, elapsed=r.elapsed,
+                     hosts_lost=r.hosts_lost, budgets=r.plan.host_budgets,
+                     flagged=len(r.plan.flagged),
+                     statuses={st: list(r.statuses.values()).count(st)
+                               for st in ("static", "appended", "delta", "replaced")},
+                     join_fallbacks=r.join_fallbacks,
+                     hosts=[dataclasses.asdict(h) for h in r.host_stats])
+                for r in rep.rounds])), flush=True)
+    return 0
+
+
+def card_memory_used_mib() -> int:
+    """The card's used memory (MiB), every process's, as ``nvidia-smi``
+    reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=30).stdout
+    return int(out.strip().splitlines()[0])
+
+
+def run_multihost_child(root, sizes, fault) -> tuple[dict, float, int]:
+    """One multi-host scenario in a fresh interpreter (``--multihost-child``),
+    the card's used memory polled every 0.25 s meanwhile. Returns the
+    child's report, its wall seconds and the peak used memory (MiB); a
+    non-zero exit raises with the child's output."""
+    import threading
+
+    cfg = json.dumps(dict(root=str(root), sizes=list(sizes), fault=fault))
+    peak, done = [card_memory_used_mib()], threading.Event()
+
+    def poll():
+        while not done.wait(0.25):
+            peak[0] = max(peak[0], card_memory_used_mib())
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"),
+                              "--multihost-child", cfg], capture_output=True, text=True,
+                             timeout=MH_CHILD_TIMEOUT)
+    finally:
+        done.set()
+        poller.join()
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"multihost child (fault {fault}) exited {res.returncode}:\n"
+                             f"{res.stdout[-4000:]}\n{res.stderr[-8000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1]), wall, peak[0]
+
+
+def check_multihost_run(label, rep, fault):
+    """The phase's checks on one run's report: the process backend, the
+    hosts lost and re-dispatched, every surviving host's catalog empty at
+    each round's end and within its budget at its peak, and the kernels
+    the forked hosts launched."""
+    if rep["backend"] != "process":
+        raise AssertionError(f"multihost {label}: backend {rep['backend']}")
+    want_lost = [fault["host"]] if fault else []
+    if rep["hosts_lost"] != want_lost:
+        raise AssertionError(f"multihost {label}: hosts lost {rep['hosts_lost']}, "
+                             f"expected {want_lost}")
+    sources = {r["from_host"] for r in rep["redispatches"]}
+    if (fault and (not rep["redispatches"] or sources != {fault["host"]})) or (
+            not fault and rep["redispatches"]):
+        raise AssertionError(f"multihost {label}: re-dispatches {rep['redispatches']}")
+    for r in rep["rounds"]:
+        for h in r["hosts"]:
+            if h["alive"] and h["used_bytes"] != 0.0:
+                raise AssertionError(f"multihost {label} round {r['round_idx']} host "
+                                     f"{h['host']}: {h['used_bytes']} B left in its catalog")
+            if not h["peak_catalog_bytes"] <= r["budgets"][h["host"]]:
+                raise AssertionError(f"multihost {label} round {r['round_idx']} host "
+                                     f"{h['host']}: peak catalog {h['peak_catalog_bytes']} "
+                                     f"over its budget {r['budgets'][h['host']]}")
+    unlaunched = [k for k in MH_KERNELS if rep["launches"].get(k, 0) <= 0]
+    if unlaunched:
+        raise AssertionError(f"multihost {label}: the forked hosts never launched "
+                             f"{unlaunched}: {rep['launches']}")
+    if rep["launches"].get("filter_gt/scalar", 0):
+        raise AssertionError(f"multihost {label}: a FILTER launch took the scalar compare")
+
+
+def multihost_phase(torch, core, mv, wl=None, oracle=None, part_rounds=None):
+    """The sc-incr-P8 scenario on 4 forked hosts sharing the card (0.4 GB of
+    catalog each), fault-free (A) and with host 1 killed mid-round (B),
+    each in a fresh interpreter; both stores held bitwise against the
+    single-host P = 8 store ``oracle`` (built here when not given, as with
+    ``--only multihost``), then removed with it. Returns the launches the
+    forked hosts shipped over both runs."""
+    t_phase = time.perf_counter()
+    root = HERE / "build" / "chip_smoke_multihost"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    spec = mv.UpdateSpec(**dict(SCENARIO, n_rounds=MAIN_SCENARIO_ROUNDS))
+    if wl is None:
+        wl = mv.realize_workload(mv.generate_workload(12, seed=4),
+                                 bytes_per_root=MAIN_BYTES_PER_ROOT, device="cuda")
+        wl = calibrate_in_memory(mv, wl)
+    if oracle is None:
+        oracle = mv.DiskStore(root / "oracle", device="cuda")
+        rep = mv.run_partitioned_scenario(wl, N_PARTITIONS, oracle, MAIN_BUDGET, spec,
+                                          core.PAPER_COST_MODEL, planner="auto")
+        part_rounds = [r.elapsed for r in rep.rounds]
+    pwl, _ = mv.partition_workload(wl, N_PARTITIONS)
+    sizes = [n.size for n in wl.nodes]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches = collections.Counter()
+    for label, fault in (("A", None), ("B", MH_KILL)):
+        base_mib = card_memory_used_mib()
+        rep, wall, peak_mib = run_multihost_child(root / label, sizes, fault)
+        check_multihost_run(label, rep, fault)
+        t0 = time.perf_counter()
+        store = mv.DiskStore(root / label, device="cuda")
+        mv.verify_scenario_equivalence(pwl, oracle, store)
+        verify_s = time.perf_counter() - t0
+        shutil.rmtree(root / label)
+        launches.update(rep["launches"])
+        walls = [r["elapsed"] for r in rep["rounds"]]
+        log(f"multihost: run {label} ({'fault-free' if not fault else 'kill ' + json.dumps(fault)}): "
+            f"child {wall:.3f}s (start-up to the scenario {rep['import_s']:.3f}s, scenario "
+            f"{rep['scenario_s']:.3f}s); rounds {[f'{w:.3f}' for w in walls]} s vs the "
+            f"single-host P={N_PARTITIONS} rounds {[f'{w:.3f}' for w in part_rounds]} s; "
+            f"card memory used {base_mib} MiB before, peak {peak_mib} MiB; verify "
+            f"{verify_s:.3f}s: bitwise equal to the single-host P={N_PARTITIONS} store")
+        for r in rep["rounds"]:
+            hosts = "; ".join(
+                f"h{h['host']}{'' if h['alive'] else ' (lost)'} executed {h['executed']} "
+                f"hits {h['catalog_hits']} peak {h['peak_catalog_bytes']:.0f} B"
+                for h in r["hosts"])
+            log(f"multihost: run {label} round {r['round_idx']} ({r['mode']}) "
+                f"{r['elapsed']:.3f}s flagged {r['flagged']} statuses {r['statuses']} "
+                f"join_fallbacks {r['join_fallbacks']} hosts lost {r['hosts_lost']}: {hosts}")
+        log(f"multihost: run {label} re-dispatches {len(rep['redispatches'])} "
+            f"{sorted({(d['from_host'], d['to_host'], d['reason']) for d in rep['redispatches']})}; "
+            f"launches in the forked hosts {rep['launches']}")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"multihost: {MH_HOSTS} forked hosts on one card, P={N_PARTITIONS}, "
+        f"{MH_HOST_BUDGET:.3e} B of catalog each: both runs bitwise equal to the "
+        f"single-host store; phase {time.perf_counter() - t_phase:.1f}s")
+    return dict(launches)
 
 
 def check_finite(torch, name, table):
@@ -1996,7 +2251,7 @@ def check_finite(torch, name, table):
 
 # The phases ``--only`` can run on their own (after the card and build
 # phases): those that need no other phase's state.
-ONLY_PHASES = ("kernels", "mqo", "serve", "mamba", "train")
+ONLY_PHASES = ("kernels", "multihost", "mqo", "serve", "mamba", "train")
 
 
 def parse_only(argv) -> tuple[str, ...] | None:
@@ -2032,7 +2287,8 @@ def run_only(torch, np, dp, dev, bw, inst_rate, per_row, only, t_start) -> int:
         kernel_phase(torch, np, dp, dev, bw, inst_rate, per_row)
         model_kernel_phase(torch, dev, bw)
         log(f"phase kernels {time.perf_counter() - t_phase:.1f}s")
-    for name, run in (("mqo", lambda: mqo_phase(torch, core, mv, dp)),
+    for name, run in (("multihost", lambda: multihost_phase(torch, core, mv)),
+                      ("mqo", lambda: mqo_phase(torch, core, mv, dp)),
                       ("serve", lambda: serve_phase(torch, np, dev)),
                       ("mamba", lambda: mamba_phase(torch, np, dev)),
                       ("train", lambda: train_phase(torch, np, dev, fresh_train_root()))):
@@ -2046,11 +2302,13 @@ def run_only(torch, np, dp, dev, bw, inst_rate, per_row, only, t_start) -> int:
 
 
 def main() -> int:
-    only = parse_only(sys.argv[1:])
     if not (HERE / "src" / "repro_torch" / "mv" / "dataplane.py").is_file():
         print("chip_smoke: the port (src/repro_torch) is not beside this script",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--multihost-child"] and len(sys.argv) == 3:
+        return multihost_child(sys.argv[2])
+    only = parse_only(sys.argv[1:])
     sys.path.insert(0, str(HERE / "src"))
     import numpy as np
     import torch
@@ -2140,7 +2398,7 @@ def main() -> int:
     total_bytes = sum(main["graph"].sizes)
     log(f"main: 12 MVs, {total_bytes:.4e} B of MV output, budget {MAIN_BUDGET:.3e} B, "
         f"flagged {sorted(main['plan'].flagged)}")
-    log(f"main: calibrate {main['calib_s']:.3f}s serial {serial_rep.elapsed:.3f}s "
+    log(f"main: serial (the calibration run) {serial_rep.elapsed:.3f}s "
         f"S/C {sc_rep.elapsed:.3f}s speedup {serial_rep.elapsed / sc_rep.elapsed:.3f}x "
         f"catalog_hits {sc_rep.catalog_hits} peak_catalog {sc_rep.peak_catalog_bytes:.0f} B "
         f"max_memory_allocated {peak_mem} B")
@@ -2149,7 +2407,7 @@ def main() -> int:
         f"write {sc_rep.write_seconds:.3f}s")
     log("main: S/C node seconds " + json.dumps(
         {k: round(v, 4) for k, v in sc_rep.node_seconds.items()}))
-    log(f"main: launches (calibrate+serial+S/C) {main['launches']} {main['variants']}; "
+    log(f"main: launches (serial+S/C) {main['launches']} {main['variants']}; "
         f"S/C round alone {main['sc_launches']}")
     log_probe_shapes("main", main["probe_shapes"], main["launches"]["probe_sorted"])
     log("main: S/C output bitwise equal to serial; every kernel of the round "
@@ -2185,18 +2443,28 @@ def main() -> int:
         f"budget; max_memory_allocated {part_mem} B")
     # the probe at the partitioned path's commonest shape, beside the main one
     (p_uniq, p_n), _ = part["partitioned"]["probe_shapes"].most_common(1)[0]
+    # the P=8 store stays as the multi-host phase's oracle
+    oracle = part["partitioned"]["store"]
+    part_rounds = [r.elapsed for r in part["partitioned"]["rep"].rounds]
     del part
-    shutil.rmtree(store_root, ignore_errors=True)
+    shutil.rmtree(store_root / "unpartitioned_cuda")
     rows.append(kernel_row(torch, dp, bw, inst_rate, *probe_case(
         torch, dp, dev, p_uniq, p_n, f"{p_n}_into_{p_uniq}_P{N_PARTITIONS}")))
     log(f"phase part {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 6. the MQO shared-prefix path ---------------------------------------------
+    # -- 6. multi-host: 4 forked hosts on the card -----------------------------------
+    t_phase = time.perf_counter()
+    mh_launches = multihost_phase(torch, core, mv, main["wl"], oracle, part_rounds)
+    del oracle
+    shutil.rmtree(store_root, ignore_errors=True)
+    log(f"phase multihost {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 7. the MQO shared-prefix path ---------------------------------------------
     t_phase = time.perf_counter()
     mqo_launches, mqo_variants = mqo_phase(torch, core, mv, dp)
     log(f"phase mqo {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 7. card against CPU ------------------------------------------------------
+    # -- 8. card against CPU ------------------------------------------------------
     t_phase = time.perf_counter()
     small_budget = MAIN_BUDGET * SMALL_BYTES_PER_ROOT / MAIN_BYTES_PER_ROOT
     on_card = refresh_round(torch, core, mv, store_root / "small_cuda",
@@ -2234,22 +2502,22 @@ def main() -> int:
     shutil.rmtree(store_root, ignore_errors=True)
     log(f"phase cpu {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 8. serving -----------------------------------------------------------------
+    # -- 9. serving -----------------------------------------------------------------
     t_phase = time.perf_counter()
     serve_launches, oracle_launches = serve_phase(torch, np, dev)
     log(f"phase serve {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 9. Mamba-2 serving -------------------------------------------------------
+    # -- 10. Mamba-2 serving ------------------------------------------------------
     t_phase = time.perf_counter()
     mamba_launches = mamba_phase(torch, np, dev)
     log(f"phase mamba {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 10. training ----------------------------------------------------------------
+    # -- 11. training ----------------------------------------------------------------
     t_phase = time.perf_counter()
     train_launches = train_phase(torch, np, dev, fresh_train_root())
     log(f"phase train {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 11. kernels line -----------------------------------------------------------
+    # -- 12. kernels line -----------------------------------------------------------
     # Each kernel reports the times of the case its path's calls take (the
     # data plane's 16.7M-row columns, RMSNorm on the bf16 serving prefill,
     # the flash kernels on the bf16 training shape, the SSD scan on the bf16
@@ -2275,17 +2543,21 @@ def main() -> int:
     for name, (kernel, variant) in row_of.items():
         model_launches[name] = model_launches.pop(f"{kernel}/{variant}")
     # The data-plane kernels' launches: the main path's, the partitioned
-    # path's and the MQO path's (its unshared and merged scenarios); the
-    # scalar compare's are its variant's share of filter_gt's.
-    dp_launches = {k: main["launches"][k] + part_launches[k] + mqo_launches[k]
-                   for k in main["launches"]}
+    # path's, the multi-host path's (shipped by its forked hosts, both runs)
+    # and the MQO path's (its unshared and merged scenarios); the scalar
+    # compare's are its variant's share of filter_gt's. The multi-host
+    # path's share is also listed alone (``multihost_launches``).
+    dp_launches = {k: main["launches"][k] + part_launches[k] + mh_launches.get(k, 0)
+                   + mqo_launches[k] for k in main["launches"]}
     dp_launches["filter_gt_scalar"] = (main["variants"]["filter_gt/scalar"]
                                        + part_variants["filter_gt/scalar"]
+                                       + mh_launches.get("filter_gt/scalar", 0)
                                        + mqo_variants["filter_gt/scalar"])
     if dp_launches["filter_gt_scalar"]:   # every column of these paths has a vector
         raise AssertionError(f"{dp_launches['filter_gt_scalar']} FILTER launches of the "
-                             "main, P=8 and MQO paths took the scalar compare")
+                             "main, P=8, multi-host and MQO paths took the scalar compare")
     dp_launches["filter_gt"] -= dp_launches["filter_gt_scalar"]
+    mh_only = dict(mh_launches, filter_gt_scalar=0)
     row_of["filter_gt_scalar"] = ("filter_gt", None)
     headline = {"filter_gt": "f32", "filter_gt_scalar": "f32_unaligned_scalar",
                 "map_derived": "two_f32",
@@ -2315,9 +2587,10 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             device_ms=row["device_ms"], library_device_ms=row["library_device_ms"],
+            multihost_launches=mh_only.get(name, 0),
         ))
     log(f"launches: main path {main['launches']}; partitioned path {part_launches}; "
-        f"MQO path {mqo_launches}; "
+        f"multi-host path (forked hosts) {mh_launches}; MQO path {mqo_launches}; "
         f"serving {serve_launches}; serving oracle {oracle_launches}; Mamba-2 serving, "
         f"long prefill, oracle {list(mamba_launches)}; training {train_launches}")
     log(f"total {time.perf_counter() - t_start:.1f}s")

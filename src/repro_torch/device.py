@@ -10,9 +10,15 @@ import torch
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` → ``cuda`` (raising ``RuntimeError`` when CUDA is not
-    available); anything else is taken as given."""
+    available); anything else is taken as given.
+
+    The check does not initialise the CUDA runtime where it can avoid it:
+    ``torch.cuda.device_count`` counts the cards through NVML (falling back
+    to the runtime only when NVML fails). ``torch.cuda.is_available`` asks
+    the runtime, and a process that has asked it can no longer fork
+    children that use the card, as the multi-host pool's hosts must."""
     if device is None:
-        if not torch.cuda.is_available():
+        if not (torch.cuda.is_initialized() or torch.cuda.device_count() > 0):
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to run the port on "
                 "the CPU with the plain PyTorch versions of its kernels"

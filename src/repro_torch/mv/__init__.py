@@ -1,8 +1,9 @@
 """S/C materialization engine on PyTorch: the data plane and its CUDA
 kernels, the table operators, the Memory Catalog, storage, the Controller,
 the refresh engine and simulator, the incremental and hash-partitioned
-(full-vs-incremental update) refresh subsystem, and the operator IR with its
-multi-query optimisation (``ir``, ``mqo``)."""
+(full-vs-incremental update) refresh subsystem, multi-host partitioned
+refresh with per-host budgets and fault re-dispatch (``multihost``), and the
+operator IR with its multi-query optimisation (``ir``, ``mqo``)."""
 from . import dataplane
 from .catalog import CatalogOverflowError, MemoryCatalog
 from .engine import ScheduleCore, ThreadedEngine, simulate_events
@@ -16,6 +17,16 @@ from .incremental import (
     run_scenario,
     simulate_scenario,
     verify_scenario_equivalence,
+)
+from .multihost import (
+    FaultAction,
+    FaultPlan,
+    HostPool,
+    MultiHostRoundReport,
+    MultiHostScenarioReport,
+    StragglerConfig,
+    place_partitions,
+    run_multihost_scenario,
 )
 from .mqo import (
     MergedWorkload,
@@ -83,6 +94,14 @@ __all__ = [
     "run_scenario",
     "simulate_scenario",
     "verify_scenario_equivalence",
+    "FaultAction",
+    "FaultPlan",
+    "HostPool",
+    "MultiHostRoundReport",
+    "MultiHostScenarioReport",
+    "StragglerConfig",
+    "place_partitions",
+    "run_multihost_scenario",
     "MergedWorkload",
     "merge_workload",
     "node_fingerprints",

@@ -5,7 +5,9 @@ shared library with a plain ``extern "C"`` interface, loaded with ctypes.
 The build happens at first use, into ``build/repro_torch/`` at the root of
 the repository, under a name keyed by a hash of the sources and the flags:
 a changed source is rebuilt, an unchanged one reused. ``build`` starts one
-``nvcc`` per source, all at once, and waits for them together.
+``nvcc`` per source, all at once, and waits for them together; a file
+lock in the build directory lets one process build while others (the forked
+hosts of a multi-host pool, say) wait and then load what it built.
 
 Each family of kernels declares its C entry points with :func:`declare`.
 :func:`launch` calls one of them on a device's current stream, raises when
@@ -18,6 +20,7 @@ CPU tests import every module, and a machine without a card has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -50,6 +53,17 @@ _entry_points: dict[str, tuple[str, list]] = {}
 # launches of every kernel, and of "kernel/variant" for a variant's share
 _counts: dict[str, int] = {}
 _count_lock = threading.Lock()
+
+
+def _fresh_locks() -> None:
+    """A forked child starts with its own unlocked locks: a lock another
+    thread of the parent held at the fork would stay held in the child."""
+    global _lock, _count_lock
+    _lock = threading.Lock()
+    _count_lock = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_fresh_locks)
 
 
 def _nvcc() -> str:
@@ -85,6 +99,12 @@ def build(names=SOURCES) -> dict[str, str]:
 
 def _build_locked(names: tuple[str, ...]) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # released when the file closes
+        return _build_unshared(names)
+
+
+def _build_unshared(names: tuple[str, ...]) -> dict[str, str]:
     procs = {}
     for name in names:
         target = library_path(name)

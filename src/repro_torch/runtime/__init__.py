@@ -1,4 +1,4 @@
-"""Runtime fault tolerance: preemption and stragglers."""
-from .ft import PreemptionHandler, StragglerDetector, StragglerEvent
+"""Runtime fault tolerance: preemption, stragglers, elastic restart."""
+from .ft import PreemptionHandler, StragglerDetector, StragglerEvent, elastic_restore
 
-__all__ = ["PreemptionHandler", "StragglerDetector", "StragglerEvent"]
+__all__ = ["PreemptionHandler", "StragglerDetector", "StragglerEvent", "elastic_restore"]

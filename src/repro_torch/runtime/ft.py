@@ -1,6 +1,5 @@
-"""Fault tolerance: preemption-safe shutdown and straggler detection; the
-counterpart of ``repro.runtime.ft`` (``elastic_restore`` comes with the
-sharding slice of the port).
+"""Fault tolerance: preemption-safe shutdown, straggler detection, elastic
+restart; the counterpart of ``repro.runtime.ft``.
 
 Designed for 1000+-node operation: every mechanism is per-host-local with
 O(1) state, no global coordination beyond what the checkpoint already
@@ -12,6 +11,8 @@ provides.
 * ``StragglerDetector`` — per-host step-duration EWMA vs the fleet median;
   hosts slower than ``threshold ×`` median for ``patience`` consecutive steps
   are flagged (the caller re-dispatches or evicts; here surfaced as events).
+* ``elastic_restore`` — checkpoints are topology-agnostic arrays keyed by
+  leaf path; restoring on other devices is a copy to each leaf's new place.
 """
 from __future__ import annotations
 
@@ -20,6 +21,10 @@ import signal
 import statistics
 import threading
 from typing import Any
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
 
 
 class PreemptionHandler:
@@ -91,3 +96,51 @@ class StragglerDetector:
                 )
                 self._strikes[h] = 0  # re-arm after reporting
         return flagged
+
+
+def _leaf_key(path) -> str:
+    """A leaf's checkpoint key: its path "/"-joined, each entry by its
+    mapping key or sequence index (the reference's keys)."""
+    return "/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)
+
+
+def _as_tensor(value: Any) -> torch.Tensor:
+    """A checkpoint value as a tensor; a numpy bf16 array (the reference's
+    ``ml_dtypes`` type, which torch cannot read) through its 16-bit view."""
+    if isinstance(value, np.ndarray) and value.dtype.name == "bfloat16":
+        return torch.from_numpy(value.view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(value)
+
+
+def elastic_restore(flat: dict, template: Any, shardings: Any = None) -> Any:
+    """Rebuild a state pytree from a topology-agnostic checkpoint dict on the
+    *current* devices (which may differ from those that saved it).
+
+    ``flat`` maps each leaf's "/"-joined path to its array (numpy or
+    tensor), as either package's ``CheckpointManager.restore_flat`` returns
+    it. Each leaf takes its template leaf's dtype. ``shardings=None`` puts
+    it on its template leaf's device; a pytree of ``torch.device`` matching
+    the template places each leaf. Sharded placements come with the
+    sharding slice of the port and raise ``NotImplementedError``."""
+    paths, spec = pytree.tree_flatten_with_path(template)
+    if shardings is None:
+        places = [None] * len(paths)
+    else:
+        places = pytree.tree_leaves(shardings)
+        if len(places) != len(paths):
+            raise ValueError(
+                f"{len(places)} placements for {len(paths)} template leaves")
+        bad = [p for p in places if not isinstance(p, torch.device)]
+        if bad:
+            raise NotImplementedError(
+                f"placement {bad[0]!r}: elastic_restore places leaves on "
+                "torch.device only; sharded placements come with the "
+                "sharding slice")
+    out = []
+    for (path, leaf), place in zip(paths, places):
+        like = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(leaf)
+        arr = _as_tensor(flat[_leaf_key(path)]).to(
+            device=like.device if place is None else place, dtype=like.dtype,
+            copy=True)
+        out.append(arr)
+    return pytree.tree_unflatten(out, spec)

@@ -5,7 +5,8 @@ ragged sizes, the wrappers' refusals, the launch counters, a small refresh
 round, a small partitioned incremental scenario and a small MQO-merged
 scenario card against CPU, schema inference on the card (no launch), and
 small-model serving (dense and Mamba-2) and training steps card against
-CPU. The data-plane kernels are compared bitwise; RMSNorm, the flash forward
+CPU, and a small multi-host scenario on forked hosts that use the card (in
+a fresh interpreter) against the CPU. The data-plane kernels are compared bitwise; RMSNorm, the flash forward
 and the SSD scan within the JAX kernel tests' tolerances (1e-5 / 2e-2,
 2e-5 / 3e-2 and 2e-4 / 5e-2 in f32 / bf16), the flash backward within 2e-4
 in f32 (the JAX gradient test's) and 3e-2 in bf16 (one bf16 rounding of
@@ -918,3 +919,91 @@ def test_small_mamba_serving_card_equals_cpu(dev):
     card_logits, _, _ = models.forward(cfg, card_model, prompt.to(dev))
     cpu_logits, _, _ = models.forward(cfg, cpu_model, prompt)
     torch.testing.assert_close(card_logits.cpu(), cpu_logits, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# multi-host refresh: forked hosts on the card
+# ---------------------------------------------------------------------------
+
+# One multi-host scenario on the card, run in a fresh interpreter (this
+# test process has initialised CUDA, and its forks could not use the card):
+# the default device throughout (``DiskStore(root)``, ``realize_workload``
+# without ``device``), the process backend, 2 hosts, P = 4; prints the
+# report's hosts lost, re-dispatch sources, launches and the store's device.
+MULTIHOST_CHILD = """
+import json, sys
+import torch
+import repro_torch.core as pc
+import repro_torch.mv as mv
+root, fault = sys.argv[1], sys.argv[2]
+wl = mv.realize_workload(mv.generate_workload(n_nodes=10, seed=7),
+                         bytes_per_root=1 << 16, seed=7, key_skew=1.0)
+store = mv.DiskStore(root)
+fp = mv.FaultPlan((mv.FaultAction("kill", host=1, round_idx=1, after_tasks=1),)
+                  if fault == "kill" else ())
+assert not torch.cuda.is_initialized()
+rep = mv.run_multihost_scenario(
+    wl, 4, store, [float(1 << 21)] * 2,
+    mv.UpdateSpec(mode="incremental", n_rounds=2, ingest_frac=0.2, update_frac=0.15),
+    pc.CostModel(disk_read_bw=50e6, disk_write_bw=50e6, mem_read_bw=1e12,
+                 mem_write_bw=1e12, disk_latency=0.0),
+    backend="process", fault_plan=fp, round_timeout=300.0)
+print(json.dumps(dict(hosts_lost=rep.hosts_lost, launches=rep.launches,
+                      device=str(store.device),
+                      redispatch_from=sorted({r.from_host for r in rep.redispatches}),
+                      used=[hs.used_bytes for r in rep.rounds for hs in r.host_stats
+                            if hs.alive])))
+"""
+
+
+@pytest.mark.parametrize("fault", ["none", "kill"])
+def test_multihost_process_hosts_on_card_equal_cpu(dev, tmp_path, fault):
+    """Two forked hosts compute on the card (the default device, asked
+    without initialising CUDA before the fork), fault-free and with host 1
+    killed mid-round; the store equals the CPU thread-backend run's
+    bitwise, and every host ships non-zero launches of the round's
+    data-plane kernels."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    res = subprocess.run([sys.executable, "-c", MULTIHOST_CHILD, str(tmp_path / "card"),
+                          fault], env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["device"] == "cuda"
+    assert out["hosts_lost"] == ([1] if fault == "kill" else [])
+    assert out["redispatch_from"] == ([1] if fault == "kill" else [])
+    assert not any(out["used"])
+    for k in ("filter_gt", "map_derived", "fixed_point_encode", "probe_sorted",
+              "pid_hist", "fixed_point_encode/weighted"):
+        assert out["launches"][k] > 0, (k, out["launches"])
+    wl = mv.realize_workload(mv.generate_workload(n_nodes=10, seed=7),
+                             bytes_per_root=1 << 16, seed=7, key_skew=1.0, device="cpu")
+    cpu = mv.DiskStore(tmp_path / "cpu", device="cpu")
+    mv.run_multihost_scenario(
+        wl, 4, cpu, [float(1 << 21)] * 2,
+        mv.UpdateSpec(mode="incremental", n_rounds=2, ingest_frac=0.2, update_frac=0.15),
+        core.CostModel(disk_read_bw=50e6, disk_write_bw=50e6, mem_read_bw=1e12,
+                       mem_write_bw=1e12, disk_latency=0.0),
+        backend="thread")
+    card = mv.DiskStore(tmp_path / "card", device="cpu")
+    assert card.manifest().keys() == cpu.manifest().keys()
+    pwl, _ = mv.partition_workload(wl, 4)
+    mv.verify_scenario_equivalence(pwl, cpu, card)
+
+
+def test_multihost_process_pool_refuses_after_cuda_init(dev, tmp_path):
+    torch.cuda.init()
+    wl = mv.realize_workload(mv.generate_workload(n_nodes=10, seed=7),
+                             bytes_per_root=1 << 16, seed=7, device=dev)
+    pwl, pmap = mv.partition_workload(wl, 4)
+    spec = mv.partition.expand_update_spec(
+        mv.UpdateSpec(mode="incremental", n_rounds=1, ingest_frac=0.2), pmap)
+    with pytest.raises(RuntimeError, match="initialised CUDA"):
+        mv.HostPool(pwl, mv.DiskStore(tmp_path, device=dev), [float(1 << 21)] * 2,
+                    spec, backend="process")

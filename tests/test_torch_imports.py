@@ -62,7 +62,7 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     assert {"repro_torch.train.loop", "repro_torch.train.step", "repro_torch.core.planner",
             "repro_torch.checkpoint.ckpt", "repro_torch.data.pipeline",
             "repro_torch.runtime.ft", "repro_torch.launch.train",
-            "repro_torch.kernels.ssd_scan"} <= set(mods)
+            "repro_torch.kernels.ssd_scan", "repro_torch.mv.multihost"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -136,7 +136,10 @@ def test_no_jax_or_repro_import_in_source(path):
         "sc_trace_torch.demo"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path,
                                                            monkeypatch):
+    # the port asks for a card without initialising CUDA: NVML's count
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry(tmp_path)
     assert not (tmp_path / "d").exists() and not (tmp_path / "ck").exists()
@@ -166,3 +169,46 @@ def test_wrappers_refuse_other_devices():
 
 def test_package_has_a_version():
     assert repro_torch.__version__
+
+
+def test_default_device_never_asks_the_cuda_runtime(monkeypatch):
+    """``resolve_device(None)`` counts cards through NVML
+    (``torch.cuda.device_count``) and never calls ``torch.cuda.is_available``,
+    which initialises the CUDA runtime and leaves a process unable to fork
+    hosts that use the card (the multi-host pool's process backend)."""
+    from repro_torch.device import resolve_device
+
+    def runtime_check():
+        raise AssertionError("torch.cuda.is_available was called")
+
+    monkeypatch.setattr(torch.cuda, "is_available", runtime_check)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert resolve_device(None) == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_native_locks_are_fresh_in_a_forked_child():
+    """A lock of ``native`` held by a parent thread at a fork is a fresh,
+    unlocked lock in the child (the multi-host pool forks its hosts)."""
+    import multiprocessing as mp
+
+    from repro_torch import native
+
+    ctx = mp.get_context("fork")
+    q = ctx.Queue()
+
+    def child():
+        q.put((native._lock.acquire(timeout=5), native._count_lock.acquire(timeout=5)))
+
+    with native._lock, native._count_lock:
+        proc = ctx.Process(target=child)
+        proc.start()
+        got = q.get(timeout=30)
+        proc.join(30)
+    assert got == (True, True) and proc.exitcode == 0
