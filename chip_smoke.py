@@ -6,8 +6,9 @@ Hopper card.
     python3 chip_smoke.py --only kernels,train   # card and build, then these
 
 Phases, in order; any failure raises and exits non-zero (``--only`` runs the
-card and build phases and then the named ones of kernels, multihost, mqo,
-serve, mamba and train, and prints no kernels or result line):
+card and build phases and then the named ones of lint, kernels, multihost,
+mqo, examples, serve, mamba and train, and prints no kernels or result
+line):
 
 1. card    — the card's name and power limit (``nvidia-smi``);
 2. build   — ``nvcc`` for every CUDA source of the port, all in parallel,
@@ -19,7 +20,16 @@ serve, mamba and train, and prints no kernels or result line):
              spill at head dims 80 and 160, and its SASS there must hold no
              tensor-core instruction (its main loops' FFMA, LDS, LDGSTS and
              BAR counts logged);
-3. kernels — each hand-written kernel against its plain PyTorch version on
+3. lint    — ``tools/sc_lint_torch.py``'s six passes on the card (source,
+             ptx, delta-safety, plan, mqo, fixtures): the PTX lints read
+             every kernel of ``csrc/dataplane.cu`` as ``nvcc`` compiles it
+             now (no ``lint-skipped`` finding; PTX instructions read per
+             kernel logged), the two MAP fixtures compiled fresh must fire
+             as their committed PTX does (the legacy map both
+             ``transcendental-kernel`` and ``fma-contraction``, the shipped
+             map nothing), and no gating finding may lie outside
+             ``tools/sc_lint_torch_baseline.json``;
+4. kernels — each hand-written kernel against its plain PyTorch version on
              the card: the data-plane kernels bitwise at the main path's
              shapes (16,777,216 rows; a 4,194,304-key join index; P = 8
              partitions, and P = 4096 and 100,003 across the shared-memory
@@ -40,7 +50,10 @@ serve, mamba and train, and prints no kernels or result line):
              serving shape (GQA), a ragged non-causal, a causal sq != sk
              and a keyless case, and in bf16 the wide heads' training
              shapes (stablelm-12b: b 2, 32 over 8 heads of 160; gemma-7b:
-             16 over 16 heads of 256; 4096 positions, causal); the SSD
+             16 over 16 heads of 256; 4096 positions, causal) and, in
+             bf16, the examples path's shapes (``train_lm``: RMSNorm on
+             256 rows of 128, the forward and both backward kernels at b
+             2, 4 over 4 heads of 32, 128 positions, causal); the SSD
              scan within 2e-4 / 5e-2 at the Mamba-2 serving prefill (b 4,
              512 positions, 80 heads of 64,
              state 128; f32 and bf16), the long prefill (1 x 32768, bf16),
@@ -54,7 +67,7 @@ serve, mamba and train, and prints no kernels or result line):
              backward: those its forward did not run), each flash case's
              dq + dk/dv device time beside SDPA's backward, and the
              forward+backward pair against SDPA's;
-4. main    — one S/C refresh round: ``generate_workload(12, seed=4)``
+5. main    — one S/C refresh round: ``generate_workload(12, seed=4)``
              realized at 512 MiB per root on the card, run serially (the
              serial run is the calibration run: its manifest sizes the
              nodes), solved for a 1.6 GB Memory Catalog, run with S/C; the
@@ -63,7 +76,7 @@ serve, mamba and train, and prints no kernels or result line):
              round then runs once more under ``torch.profiler`` for the
              device's busy share; the (L, n) shapes of the join probe's
              launches are logged;
-5. part    — the same calibrated workload through an incremental scenario
+6. part    — the same calibrated workload through an incremental scenario
              (one round of 10% ingest, 5% update, 2% delete after the
              build), hash-partitioned P = 8 ways and unpartitioned, with the
              1.6 GB catalog: the partitioned stores must reassemble bitwise
@@ -72,7 +85,7 @@ serve, mamba and train, and prints no kernels or result line):
              probe's launch shapes are logged, and the probe is held and
              timed once more at the partitioned path's commonest shape;
              the P = 8 store is kept for the next phase;
-6. multihost — the same scenario's P = 8 partitions hash-placed on 4
+7. multihost — the same scenario's P = 8 partitions hash-placed on 4
              hosts (``run_multihost_scenario``, the process backend), 0.4
              GB of catalog each, no straggler speculation: run A
              fault-free, run B with host 1 killed after its first task of
@@ -91,10 +104,10 @@ serve, mamba and train, and prints no kernels or result line):
              start-up and the verify seconds are logged (``--only
              multihost`` calibrates in memory and builds its own P = 8
              store);
-7. mqo     — ``shared_prefix_workload(3)`` (a fact and a dim scan, three
+8. mqo     — ``shared_prefix_workload(3)`` (a fact and a dim scan, three
              views sharing a FILTER -> JOIN prefix: 23 nodes) realized at
              512 MiB per root on the card, calibrated in memory (the sizes
-             ``calibrate_sizes`` gives, checked at 4 MiB in phase 8, without
+             ``calibrate_sizes`` gives, checked at 4 MiB in phase 9, without
              writing every MV), merged there (19
              nodes), then the part phase's incremental scenario unshared
              and merged, the merged run traced (``obs.trace``): every view
@@ -105,13 +118,26 @@ serve, mamba and train, and prints no kernels or result line):
              ``unsound-merge`` on the forged fixture, a valid Chrome trace
              (written to a temporary directory); round times, flagged
              sets, launches, peak memory and the plan audit logged;
-8. cpu     — the round, the partitioned scenario (two incremental rounds)
+9. cpu     — the round, the partitioned scenario (two incremental rounds)
              and the MQO merge's scenario, at 4 MiB per root on
              the card and on the CPU (plain versions): every stored MV and
              partition bitwise equal, both partitioned stores equal to
              a full-recompute scenario on the card, and the same merge
              fingerprints on both;
-9. serve   — stablelm-12b at full width and depth (40 layers, bf16,
+10. examples — the port's seven examples (``examples/*_torch.py``:
+             quickstart, mv_refresh_pipeline, incremental_refresh,
+             update_delete_refresh, partitioned_refresh, traced_refresh,
+             train_lm) with ``SC_SMOKE=1`` on the card, each in its own
+             interpreter with its own time limit, all seven started
+             together; each must exit 0 (their
+             own asserts: bitwise stores, a falling loss), and each one's
+             seconds and kernel launches are logged; the MV examples
+             together must launch filter_gt, map_derived,
+             fixed_point_encode, probe_sorted and pid_hist, and train_lm
+             RMSNorm and the bf16 flash forward, dq and dk/dv (head dim 32)
+             on the tensor cores (held against their plain versions at
+             these shapes in the kernels phase);
+11. serve  — stablelm-12b at full width and depth (40 layers, bf16,
              random weights from a seeded generator on the card) answers 4
              requests of 512-token prompts with 32 greedy tokens each
              through ``greedy_generate``: RMSNorm must launch 81 times per
@@ -124,7 +150,7 @@ serve, mamba and train, and prints no kernels or result line):
              cache-less forward (which runs the flash kernel) within 2e-2;
              then reduced stablelm-12b with GQA in f32, card against CPU:
              the same greedy tokens, logits within 1e-4;
-10. mamba  — mamba2-2.7b at full width and depth (64 layers, bf16, random
+12. mamba  — mamba2-2.7b at full width and depth (64 layers, bf16, random
              seeded weights) answers 4 requests of 512-token prompts with
              64 greedy tokens each, then prefills one 32768-token prompt:
              RMSNorm must launch 129 times per forward, the SSD scan 64
@@ -135,7 +161,7 @@ serve, mamba and train, and prints no kernels or result line):
              f32 and 2 layers over 512 + 64 positions within 2e-2; reduced
              mamba2 card
              against CPU: the same greedy tokens, logits within 1e-4;
-11. train  — the training data (4 shards of 64 x 512 tokens, vocab
+13. train  — the training data (4 shards of 64 x 512 tokens, vocab
              50304, 4097-token rows) materialized by S/C on the card, then
              ``run_training`` of stablelm-3b at full width and depth (32
              layers, d_model 2560, bf16, f32 AdamW moments, remat
@@ -151,7 +177,7 @@ serve, mamba and train, and prints no kernels or result line):
              training path. Then reduced stablelm-3b with GQA in
              f32, card against CPU (two train steps agree; the CPU launches
              no kernel), and a bitwise checkpoint save/restore round trip;
-12. a JSON line listing every kernel and variant with its launches over
+14. a JSON line listing every kernel and variant with its launches over
    every path (the multi-host path's also alone: ``multihost_launches``),
    its times (event windows and device alone), its bound and
    its worst error over its cases; then the JSON result line.
@@ -166,6 +192,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -235,6 +262,22 @@ CUDA_CORE_SASS = {"flash_bwd_dq@80": "flash_bwd_dq_kernelILi80ELb1E",
                   "flash_bwd_dkv@80": "flash_bwd_dkv_kernelILi80ELb1E",
                   "flash_bwd_dq@160": "flash_bwd_dq_kernelILi160ELb1E",
                   "flash_bwd_dkv@160": "flash_bwd_dkv_kernelILi160ELb1E"}
+
+# The port's examples (examples/<name>_torch.py), each run at its SC_SMOKE
+# sizes in its own interpreter, all at once: one after another they took
+# 93.1 s on an H100 (each ~10 s to reach the card), past what the script's
+# limit leaves. The model kernels train_lm must launch on the card (bf16,
+# head dim 32: the tensor-core variants).
+EXAMPLES = ("quickstart", "mv_refresh_pipeline", "incremental_refresh",
+            "update_delete_refresh", "partitioned_refresh", "traced_refresh",
+            "train_lm")
+EXAMPLE_TIMEOUT = 300.0
+TRAIN_LM_KERNELS = ("rmsnorm", "flash_fwd/mma", "flash_bwd_dq/mma", "flash_bwd_dkv/mma")
+# The shapes train_lm gives them at its SC_SMOKE size (stablelm-3b reduced to
+# d_model 128, 4/4 heads of 32; 8 rows a step in microbatches of 2, 128
+# positions), held against their plain versions in the kernels phase.
+TRAIN_LM_SHAPE = (2, 4, 4, 128, 128, 32, True)   # (b, hq, hkv, sq, sk, d, causal)
+TRAIN_LM_NORM = (2 * 128, 128)                   # one microbatch's rows, d_model
 
 # Which Pallas kernel each port kernel replaces (JAX package, file:line).
 REPLACES = {
@@ -488,7 +531,7 @@ def main_loop_counts(ins, ops) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernels against their plain versions
+# phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, samples: int = 21, batch: int = 10) -> float:
@@ -821,7 +864,8 @@ def model_kernel_cases(torch, dev):
     library fn or None, ``lib_minus``: a call whose time the library time
     leaves out, operations, timing samples) for RMSNorm, the flash-attention
     forward and its two backward kernels at the serving and training paths'
-    shapes, with inputs made on the card from a seeded generator. A
+    shapes and the train_lm example's (bf16), with inputs made on the card
+    from a seeded generator. A
     backward case's plain fn is ``ref.attention_bwd``, which computes dq, dk
     and dv in one call (timed whole for both kernels); its library time is
     SDPA's forward+backward minus SDPA's forward, which computes dq, dk and
@@ -843,6 +887,14 @@ def model_kernel_cases(torch, dev):
                     lfn=lfn, lib_minus=lib_minus, ops=ops, samples=samples, variant=variant)
 
     cases = []
+    rows_lm, width_lm = TRAIN_LM_NORM
+    x = randn(TRAIN_LM_NORM, torch.bfloat16)
+    w = randn((width_lm,), torch.bfloat16, 0.1, 1.0)
+    cases.append(case("rmsnorm", f"{rows_lm}x{width_lm}_bfloat16", "bfloat16", (x, w),
+                      lambda x=x, w=w: (rn.rmsnorm(x, w),),
+                      lambda x=x, w=w: (ref.rmsnorm(x, w),),
+                      lambda x=x, w=w: (F.rms_norm(x, (width_lm,), w, 1e-6),),
+                      4 * rows_lm * width_lm))
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         for rows in (2048, 4):   # a 4x512-token prefill; a 4-request decode step
@@ -873,8 +925,9 @@ def model_kernel_cases(torch, dev):
             (SERVE_BATCH, 32, 8, 100, 300, 160, True),   # causal, sq != sk
             (1, 32, 8, 8, 0, 160, True),                 # no key: every row masked
         ]
-        if dtype == torch.bfloat16:   # the wide heads' training shapes (dk/dv above 128)
-            shapes += [WIDE_TRAIN_SHAPE, GEMMA_TRAIN_SHAPE]
+        if dtype == torch.bfloat16:   # the wide heads' training shapes (dk/dv above
+            # 128) and the train_lm example's
+            shapes += [WIDE_TRAIN_SHAPE, GEMMA_TRAIN_SHAPE, TRAIN_LM_SHAPE]
         for b, hq, hkv, sq, sk, d, causal in shapes:
             q = randn((b, hq, sq, d), dtype)
             k = randn((b, hkv, sk, d), dtype)
@@ -1159,7 +1212,7 @@ def flash_pair(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 7-8: serving (stablelm-12b, mamba2-2.7b)
+# phases 11-12: serving (stablelm-12b, mamba2-2.7b)
 # ---------------------------------------------------------------------------
 
 def log_breakdown(label, wall, by_name, per=1, phase="serve"):
@@ -1468,7 +1521,7 @@ def mamba_phase(torch, np, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: training
+# phase 13: training
 # ---------------------------------------------------------------------------
 
 def predicted_train_launches(cfg, steps, n_micro) -> dict:
@@ -1701,7 +1754,7 @@ def train_phase(torch, np, dev, root):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-5: the refresh round
+# phases 5 and 9: the refresh round
 # ---------------------------------------------------------------------------
 
 def on_device_fns(torch, wl, dev_type):
@@ -1830,7 +1883,7 @@ def profiled_round(torch, mv, wl, plan, budget, root):
 
 
 # ---------------------------------------------------------------------------
-# phases 5-6: the incremental scenario, hash-partitioned and unpartitioned
+# phases 6 and 9: the incremental scenario, hash-partitioned and unpartitioned
 # ---------------------------------------------------------------------------
 
 def run_scenarios(torch, core, mv, dp, wl, root, budget, device, n_rounds):
@@ -1881,7 +1934,7 @@ def log_rounds(label, rep):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the MQO shared-prefix path
+# phase 8: the MQO shared-prefix path
 # ---------------------------------------------------------------------------
 
 def realize_shared_prefix(mv, bytes_per_root, device, root=None):
@@ -2060,7 +2113,7 @@ def mqo_card_vs_cpu(core, mv, root, budget):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: multi-host partitioned refresh, forked hosts on the card
+# phase 7: multi-host partitioned refresh, forked hosts on the card
 # ---------------------------------------------------------------------------
 
 def multihost_child(args) -> int:
@@ -2243,6 +2296,117 @@ def multihost_phase(torch, core, mv, wl=None, oracle=None, part_rounds=None):
     return dict(launches)
 
 
+def load_sc_lint():
+    """``tools/sc_lint_torch.py`` as a module (the tools directory is no
+    package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "sc_lint_torch", HERE / "tools" / "sc_lint_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def lint_phase(dev) -> None:
+    """``sc_lint_torch``'s passes on the card, then what its ptx and fixtures
+    passes read: every kernel of ``determinism.DATAPLANE_KERNELS`` linted
+    from fresh PTX with no ``lint-skipped`` finding, the two MAP fixtures
+    compiled fresh firing as their committed PTX does (the legacy map both
+    rules, the shipped map nothing), and no gating finding outside the
+    baseline. A missing ``nvcc`` or a failed compile raises."""
+    from repro_torch.analysis import (
+        determinism, fixtures, format_findings, load_baseline, new_findings)
+
+    sc_lint = load_sc_lint()
+    log(f"lint: {sc_lint.describe(dev)}; fixture PTX committed from {fixtures.PTX_NVCC}")
+    t0 = time.perf_counter()
+    record = {}
+    findings, counts = sc_lint.collect(dev, verbose=False, record=record)
+    log(f"lint: findings per pass {counts} in {time.perf_counter() - t0:.1f}s")
+    skipped = [f for f in findings if f.rule == "lint-skipped"]
+    if skipped:
+        raise AssertionError("lint-skipped on the card:\n" + format_findings(skipped))
+    per_kernel = record["ptx"]
+    missing = [k for k in determinism.DATAPLANE_KERNELS if k not in per_kernel]
+    if missing:
+        raise AssertionError(f"data-plane kernels without a PTX entry: {missing}")
+    for kernel, (entries, instructions) in per_kernel.items():
+        log(f"lint: ptx {kernel}: {entries} instantiation(s), {instructions} "
+            "PTX instructions read")
+    rules = record["fixtures"]
+    log(f"lint: MAP fixtures' rules {rules}")
+    if "fresh" not in rules:
+        raise AssertionError("the MAP fixtures were not compiled fresh")
+    if not {"transcendental-kernel", "fma-contraction"} <= set(rules["fresh"]["legacy_fused_map"]):
+        raise AssertionError(f"the fresh legacy map fires {rules['fresh']['legacy_fused_map']}")
+    if rules["fresh"]["shipped_map"]:
+        raise AssertionError(f"the fresh shipped map fires {rules['fresh']['shipped_map']}")
+    if rules["fresh"] != rules["committed"]:
+        raise AssertionError("the fresh MAP fixtures' rules differ from the committed PTX's")
+    new = new_findings(findings, load_baseline(sc_lint.BASELINE))
+    if new:
+        raise AssertionError("gating findings outside the baseline:\n" + format_findings(new))
+    log(f"lint: {len(findings)} finding(s), none gating outside the baseline; every "
+        f"data-plane kernel linted from fresh PTX")
+
+
+def examples_phase() -> None:
+    """Each of ``EXAMPLES`` with ``SC_SMOKE=1`` on the card, each in its own
+    interpreter with its own time limit, all seven started together (one
+    working directory, a temporary one; output to files there). A non-zero
+    exit or a timeout fails the phase and stops the others. Logs each
+    example's seconds (start to exit, beside the six others) and its
+    launches (its last line)."""
+    env = dict(os.environ, SC_SMOKE="1", PYTHONPATH=str(HERE / "src"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        cwd = Path(tmp)
+        procs, seconds = {}, {}
+        t0 = time.perf_counter()
+        try:
+            for name in EXAMPLES:
+                with open(cwd / f"{name}.out", "w") as out, \
+                        open(cwd / f"{name}.err", "w") as err:
+                    procs[name] = subprocess.Popen(
+                        [sys.executable, str(HERE / "examples" / f"{name}_torch.py")],
+                        cwd=cwd, env=env, stdout=out, stderr=err)
+            while len(seconds) < len(procs):
+                for name, proc in procs.items():
+                    if name not in seconds and proc.poll() is not None:
+                        seconds[name] = time.perf_counter() - t0
+                        if proc.returncode != 0:
+                            raise AssertionError(
+                                f"example {name}_torch.py exit {proc.returncode} after "
+                                f"{seconds[name]:.1f}s:\n"
+                                f"{(cwd / f'{name}.out').read_text()[-3000:]}\n"
+                                f"{(cwd / f'{name}.err').read_text()[-3000:]}")
+                if time.perf_counter() - t0 > EXAMPLE_TIMEOUT:
+                    late = [n for n in procs if n not in seconds]
+                    raise AssertionError(f"examples {late} ran past {EXAMPLE_TIMEOUT:.0f}s")
+                time.sleep(0.1)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        mv_launches = collections.Counter()
+        for name in EXAMPLES:
+            last = (cwd / f"{name}.out").read_text().strip().splitlines()[-1]
+            launches = {k: v for k, v in json.loads(last.removeprefix("launches ")).items()
+                        if v}
+            log(f"example {name}: {seconds[name]:.1f}s, launches {launches}")
+            if name == "train_lm":
+                unlaunched = [k for k in TRAIN_LM_KERNELS if not launches.get(k)]
+                if unlaunched:
+                    raise AssertionError(f"train_lm never launched {unlaunched}")
+            else:
+                mv_launches.update(launches)
+    unlaunched = [k for k in (*ROUND_KERNELS, "pid_hist") if not mv_launches[k]]
+    if unlaunched:
+        raise AssertionError(f"the MV examples never launched {unlaunched}")
+    log(f"examples: the six MV examples' data-plane launches {dict(mv_launches)}")
+
+
 def check_finite(torch, name, table):
     for col, v in table.items():
         if v.dtype.is_floating_point and not bool(torch.isfinite(v).all()):
@@ -2251,7 +2415,8 @@ def check_finite(torch, name, table):
 
 # The phases ``--only`` can run on their own (after the card and build
 # phases): those that need no other phase's state.
-ONLY_PHASES = ("kernels", "multihost", "mqo", "serve", "mamba", "train")
+ONLY_PHASES = ("lint", "kernels", "multihost", "mqo", "examples", "serve", "mamba",
+               "train")
 
 
 def parse_only(argv) -> tuple[str, ...] | None:
@@ -2282,6 +2447,10 @@ def run_only(torch, np, dp, dev, bw, inst_rate, per_row, only, t_start) -> int:
     import repro_torch.core as core
     import repro_torch.mv as mv
 
+    if "lint" in only:
+        t_phase = time.perf_counter()
+        lint_phase(dev)
+        log(f"phase lint {time.perf_counter() - t_phase:.1f}s")
     if "kernels" in only:
         t_phase = time.perf_counter()
         kernel_phase(torch, np, dp, dev, bw, inst_rate, per_row)
@@ -2289,6 +2458,7 @@ def run_only(torch, np, dp, dev, bw, inst_rate, per_row, only, t_start) -> int:
         log(f"phase kernels {time.perf_counter() - t_phase:.1f}s")
     for name, run in (("multihost", lambda: multihost_phase(torch, core, mv)),
                       ("mqo", lambda: mqo_phase(torch, core, mv, dp)),
+                      ("examples", examples_phase),
                       ("serve", lambda: serve_phase(torch, np, dev)),
                       ("mamba", lambda: mamba_phase(torch, np, dev)),
                       ("train", lambda: train_phase(torch, np, dev, fresh_train_root()))):
@@ -2368,13 +2538,18 @@ def main() -> int:
     if only is not None:
         return run_only(torch, np, dp, dev, bw, inst_rate, per_row, only, t_start)
 
-    # -- 3. kernels -------------------------------------------------------------
+    # -- 3. lint ----------------------------------------------------------------
+    t_phase = time.perf_counter()
+    lint_phase(dev)
+    log(f"phase lint {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 4. kernels -------------------------------------------------------------
     t_phase = time.perf_counter()
     rows = kernel_phase(torch, np, dp, dev, bw, inst_rate, per_row)
     rows += model_kernel_phase(torch, dev, bw)
     log(f"phase kernels {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 4. main path -----------------------------------------------------------
+    # -- 5. main path -----------------------------------------------------------
     t_phase = time.perf_counter()
     store_root = HERE / "build" / "chip_smoke_store"
     shutil.rmtree(store_root, ignore_errors=True)
@@ -2418,7 +2593,7 @@ def main() -> int:
     shutil.rmtree(store_root / "profiled")
     log(f"phase main {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 5. the partitioned incremental scenario -----------------------------------
+    # -- 6. the partitioned incremental scenario -----------------------------------
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     part = run_scenarios(torch, core, mv, dp, main["wl"], store_root,
@@ -2452,19 +2627,19 @@ def main() -> int:
         torch, dp, dev, p_uniq, p_n, f"{p_n}_into_{p_uniq}_P{N_PARTITIONS}")))
     log(f"phase part {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 6. multi-host: 4 forked hosts on the card -----------------------------------
+    # -- 7. multi-host: 4 forked hosts on the card -----------------------------------
     t_phase = time.perf_counter()
     mh_launches = multihost_phase(torch, core, mv, main["wl"], oracle, part_rounds)
     del oracle
     shutil.rmtree(store_root, ignore_errors=True)
     log(f"phase multihost {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 7. the MQO shared-prefix path ---------------------------------------------
+    # -- 8. the MQO shared-prefix path ---------------------------------------------
     t_phase = time.perf_counter()
     mqo_launches, mqo_variants = mqo_phase(torch, core, mv, dp)
     log(f"phase mqo {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 8. card against CPU ------------------------------------------------------
+    # -- 9. card against CPU ------------------------------------------------------
     t_phase = time.perf_counter()
     small_budget = MAIN_BUDGET * SMALL_BYTES_PER_ROOT / MAIN_BYTES_PER_ROOT
     on_card = refresh_round(torch, core, mv, store_root / "small_cuda",
@@ -2502,22 +2677,27 @@ def main() -> int:
     shutil.rmtree(store_root, ignore_errors=True)
     log(f"phase cpu {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 9. serving -----------------------------------------------------------------
+    # -- 10. the examples -------------------------------------------------------
+    t_phase = time.perf_counter()
+    examples_phase()
+    log(f"phase examples {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 11. serving -----------------------------------------------------------------
     t_phase = time.perf_counter()
     serve_launches, oracle_launches = serve_phase(torch, np, dev)
     log(f"phase serve {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 10. Mamba-2 serving ------------------------------------------------------
+    # -- 12. Mamba-2 serving ------------------------------------------------------
     t_phase = time.perf_counter()
     mamba_launches = mamba_phase(torch, np, dev)
     log(f"phase mamba {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 11. training ----------------------------------------------------------------
+    # -- 13. training ----------------------------------------------------------------
     t_phase = time.perf_counter()
     train_launches = train_phase(torch, np, dev, fresh_train_root())
     log(f"phase train {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 12. kernels line -----------------------------------------------------------
+    # -- 14. kernels line -----------------------------------------------------------
     # Each kernel reports the times of the case its path's calls take (the
     # data plane's 16.7M-row columns, RMSNorm on the bf16 serving prefill,
     # the flash kernels on the bf16 training shape, the SSD scan on the bf16

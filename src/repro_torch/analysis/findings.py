@@ -55,10 +55,11 @@ def load_baseline(path: str | Path) -> set[str]:
     return set(data.get("fingerprints", []))
 
 
-def save_baseline(path: str | Path, findings: Iterable[Finding]) -> set[str]:
+def save_baseline(path: str | Path, findings: Iterable[Finding],
+                  comment: str | None = None) -> set[str]:
     fps = sorted({f.fingerprint for f in gating(findings)})
     payload = {
-        "comment": (
+        "comment": comment or (
             "Accepted sc-lint debt: gating findings (error/warning) whose "
             "fingerprints are sanctioned. Regenerate with "
             "`python tools/sc_lint.py --update-baseline`."

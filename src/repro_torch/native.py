@@ -16,9 +16,15 @@ variant of it) in one registry; every kernel wrapper of the port goes
 through it, and nothing else writes the counts. A family reads its own
 counters through :class:`LaunchCounts`. Nothing here builds at import: the
 CPU tests import every module, and a machine without a card has no ``nvcc``.
+
+:func:`build_ptx` and :func:`compile_ptx` stop a source at PTX, with the
+language and optimisation flags of the shipped build and the virtual
+architecture its SASS comes from: what the determinism lints
+(``analysis.determinism``) read.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -44,6 +50,29 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+
+def ptx_flags(flags) -> tuple[str, ...]:
+    """nvcc's flags for the PTX that ptxas turns into the SASS ``flags``
+    build: each ``-gencode arch=compute_XX,code=...`` becomes
+    ``-arch=compute_XX -ptx``, and the flags that act after the PTX is made
+    (``-shared``, and whatever ``-Xcompiler`` passes to the host compiler
+    and ``-Xptxas`` to ptxas) go; every other flag (language, optimisation,
+    ``--fmad``, fast math, defines) stays as it is."""
+    out, it = [], iter(flags)
+    for flag in it:
+        if flag == "-gencode":
+            arch = next(it).split(",")[0].removeprefix("arch=")
+            out += [f"-arch={arch}", "-ptx"]
+        elif flag in ("-Xcompiler", "-Xptxas"):
+            next(it)
+        elif flag != "-shared":
+            out.append(flag)
+    return tuple(out)
+
+
+# The PTX of the libraries' sm_90a code, under NVCC_FLAGS' own device flags.
+PTX_FLAGS = ptx_flags(NVCC_FLAGS)
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[str, ctypes._CFuncPtr] = {}
@@ -66,26 +95,92 @@ def _fresh_locks() -> None:
 os.register_at_fork(after_in_child=_fresh_locks)
 
 
-def _nvcc() -> str:
+def cuda_home() -> Path:
+    """The CUDA toolkit's root (``CUDA_HOME``, else ``/usr/local/cuda``)."""
+    return Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+
+
+def nvcc_path() -> str | None:
+    """``nvcc`` on the ``PATH`` or under :func:`cuda_home`, or None."""
     nvcc = shutil.which("nvcc")
     if nvcc is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        cand = Path(cuda_home) / "bin" / "nvcc"
+        cand = cuda_home() / "bin" / "nvcc"
         if cand.exists():
             nvcc = str(cand)
+    return nvcc
+
+
+def _nvcc() -> str:
+    nvcc = nvcc_path()
     if nvcc is None:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return nvcc
 
 
-def library_path(name: str) -> Path:
-    """Where source ``csrc/<name>.cu`` builds to (content-addressed)."""
+def nvcc_version() -> str:
+    """The compiler's release line (``Cuda compilation tools, release
+    ...``); raises without ``nvcc``."""
+    out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return next((line for line in out.splitlines() if "release" in line), out.strip())
+
+
+def _digest(name: str, flags) -> str:
     h = hashlib.sha256()
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """Where source ``csrc/<name>.cu`` builds to (content-addressed)."""
+    return BUILD_DIR / f"{name}-{_digest(name, NVCC_FLAGS)}.so"
+
+
+def ptx_path(name: str) -> Path:
+    """Where source ``csrc/<name>.cu`` compiles to PTX (content-addressed,
+    as :func:`library_path`)."""
+    return BUILD_DIR / f"{name}-{_digest(name, PTX_FLAGS)}.ptx"
+
+
+def build_ptx(name: str) -> str:
+    """The PTX of ``csrc/<name>.cu`` under ``PTX_FLAGS``, compiled on first
+    use into :func:`ptx_path`; raises ``RuntimeError`` if ``nvcc`` is
+    missing or fails."""
+    return _ptx(CSRC / f"{name}.cu", ptx_path(name))
+
+
+def compile_ptx(source: str, name: str) -> str:
+    """The PTX of a CUDA source given as text, under ``PTX_FLAGS``: the
+    source and its PTX go into the build directory as ``<name>-<hash>.cu``
+    and ``.ptx``, keyed by the text and the flags."""
+    h = hashlib.sha256(source.encode())
+    h.update(" ".join(PTX_FLAGS).encode())
+    stem = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = stem.with_suffix(".cu")
+    if not src.exists():
+        tmp = src.with_suffix(f".cu.tmp{os.getpid()}")
+        tmp.write_text(source)
+        os.replace(tmp, src)
+    return _ptx(src, stem.with_suffix(".ptx"))
+
+
+def _ptx(source: Path, target: Path) -> str:
+    with _lock, _build_lock():
+        if not target.exists():
+            tmp = target.with_suffix(f".ptx.tmp{os.getpid()}")
+            proc = subprocess.run(
+                [_nvcc(), *PTX_FLAGS, "-o", str(tmp), str(source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc -ptx failed for {source.name} "
+                                   f"(exit {proc.returncode}):\n{proc.stdout}")
+            os.replace(tmp, target)
+    return target.read_text()
 
 
 def build(names=SOURCES) -> dict[str, str]:
@@ -97,10 +192,17 @@ def build(names=SOURCES) -> dict[str, str]:
         return _build_locked(tuple(names))
 
 
-def _build_locked(names: tuple[str, ...]) -> dict[str, str]:
+@contextlib.contextmanager
+def _build_lock():
+    """The build directory's file lock, shared with other processes."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / ".build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)   # released when the file closes
+        yield
+
+
+def _build_locked(names: tuple[str, ...]) -> dict[str, str]:
+    with _build_lock():
         return _build_unshared(names)
 
 

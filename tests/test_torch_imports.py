@@ -88,7 +88,8 @@ def _imported_roots(path: Path) -> set[str]:
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
-    + ["chip_smoke.py", "tools/sc_trace_torch.py"],
+    + ["chip_smoke.py", "tools/sc_trace_torch.py", "tools/sc_lint_torch.py"]
+    + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("*_torch.py")),
 )
 def test_no_jax_or_repro_import_in_source(path):
     roots = _imported_roots(ROOT / path)
