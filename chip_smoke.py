@@ -7,7 +7,7 @@ Hopper card.
 
 Phases, in order; any failure raises and exits non-zero (``--only`` runs the
 card and build phases and then the named ones of lint, kernels, multihost,
-mqo, examples, serve, mamba and train, and prints no kernels or result
+mqo, examples, serve, moe, mamba and train, and prints no kernels or result
 line):
 
 1. card    — the card's name and power limit (``nvidia-smi``);
@@ -53,10 +53,17 @@ line):
              16 over 16 heads of 256; 4096 positions, causal) and, in
              bf16, the examples path's shapes (``train_lm``: RMSNorm on
              256 rows of 128, the forward and both backward kernels at b
-             2, 4 over 4 heads of 32, 128 positions, causal); the SSD
+             2, 4 over 4 heads of 32, 128 positions, causal); RMSNorm at
+             the moe phase's widths (2048, 4096, 8192: prefill and decode
+             rows in bf16, the oracles' in f32) and serve_lm's (64, 128);
+             the f32 forward at the moe phase's oracles' shapes (4 x 16/16
+             x 544 and 4 x 32/8 x 576, head dim 128); the SSD
              scan within 2e-4 / 5e-2 at the Mamba-2 serving prefill (b 4,
              512 positions, 80 heads of 64,
              state 128; f32 and bf16), the long prefill (1 x 32768, bf16),
+             jamba's prefill (4 x 512, 128 heads of 64, state 16, bf16)
+             and its oracle's forward (4 x 576, f32), serve_lm's reduced
+             jamba (4 x 12, 8 heads of 16, state 16, bf16),
              a reduced s = chunk = 20 case, the impulse case and one case
              against the exact recurrence, and its final state within 1e-4
              of ||want|| of the plain version's and of the whole-prefix
@@ -124,19 +131,20 @@ line):
              partition bitwise equal, both partitioned stores equal to
              a full-recompute scenario on the card, and the same merge
              fingerprints on both;
-10. examples — the port's seven examples (``examples/*_torch.py``:
+10. examples — the port's eight examples (``examples/*_torch.py``:
              quickstart, mv_refresh_pipeline, incremental_refresh,
              update_delete_refresh, partitioned_refresh, traced_refresh,
-             train_lm) with ``SC_SMOKE=1`` on the card, each in its own
-             interpreter with its own time limit, all seven started
+             train_lm, serve_lm) with ``SC_SMOKE=1`` on the card, each in its own
+             interpreter with its own time limit, all eight started
              together; each must exit 0 (their
              own asserts: bitwise stores, a falling loss), and each one's
              seconds and kernel launches are logged; the MV examples
              together must launch filter_gt, map_derived,
              fixed_point_encode, probe_sorted and pid_hist, and train_lm
              RMSNorm and the bf16 flash forward, dq and dk/dv (head dim 32)
-             on the tensor cores (held against their plain versions at
-             these shapes in the kernels phase);
+             on the tensor cores, serve_lm RMSNorm and the SSD scan (held
+             against their plain versions at these shapes in the kernels
+             phase);
 11. serve  — stablelm-12b at full width and depth (40 layers, bf16,
              random weights from a seeded generator on the card) answers 4
              requests of 512-token prompts with 32 greedy tokens each
@@ -150,7 +158,27 @@ line):
              cache-less forward (which runs the flash kernel) within 2e-2;
              then reduced stablelm-12b with GQA in f32, card against CPU:
              the same greedy tokens, logits within 1e-4;
-12. mamba  — mamba2-2.7b at full width and depth (64 layers, bf16, random
+12. moe    — qwen2-moe-a2.7b at full width and depth (24 layers, 60
+             experts top-4 and 4 shared, bf16) and jamba-v0.1-52b at full
+             width, its depth cut to one superblock of 8 layers (7 Mamba-2,
+             1 attention, 4 MoE of 16 experts top-2), each answering 4
+             requests of 512-token prompts with 32 greedy tokens at the
+             configs' capacity factor 1.25: launches as the layer pattern
+             predicts (RMSNorm at every norm, the SSD scan once per Mamba-2
+             layer per prefill, no flash kernel); the (token, expert) pairs
+             one prefill and one decode step drop; a profiled prefill and
+             decode window. Each one's oracle in f32, drop-free at capacity
+             factor 16.0 (qwen2-moe at 2 layers, jamba at its 8), prefill +
+             teacher-forced decode against the cache-less forward within
+             2e-2, and jamba's again with dense FFNs in its MoE layers'
+             place; each oracle logs where its difference lies, the
+             model's gain (its logits' move under a 1-ulp embedding
+             change), and checks the first Mamba-2 layer's prefill +
+             decode against its scan within 1e-4 of its largest output
+             (the mamba phase's oracle too). Then reduced qwen2-moe, jamba, llava-next-34b (seeded
+             patch embeddings) and musicgen-large in f32, card against CPU:
+             the same greedy tokens, logits within 1e-4;
+13. mamba  — mamba2-2.7b at full width and depth (64 layers, bf16, random
              seeded weights) answers 4 requests of 512-token prompts with
              64 greedy tokens each, then prefills one 32768-token prompt:
              RMSNorm must launch 129 times per forward, the SSD scan 64
@@ -161,7 +189,7 @@ line):
              f32 and 2 layers over 512 + 64 positions within 2e-2; reduced
              mamba2 card
              against CPU: the same greedy tokens, logits within 1e-4;
-13. train  — the training data (4 shards of 64 x 512 tokens, vocab
+14. train  — the training data (4 shards of 64 x 512 tokens, vocab
              50304, 4097-token rows) materialized by S/C on the card, then
              ``run_training`` of stablelm-3b at full width and depth (32
              layers, d_model 2560, bf16, f32 AdamW moments, remat
@@ -177,7 +205,7 @@ line):
              training path. Then reduced stablelm-3b with GQA in
              f32, card against CPU (two train steps agree; the CPU launches
              no kernel), and a bitwise checkpoint save/restore round trip;
-14. a JSON line listing every kernel and variant with its launches over
+15. a JSON line listing every kernel and variant with its launches over
    every path (the multi-host path's also alone: ``multihost_launches``),
    its times (event windows and device alone), its bound and
    its worst error over its cases; then the JSON result line.
@@ -267,12 +295,16 @@ CUDA_CORE_SASS = {"flash_bwd_dq@80": "flash_bwd_dq_kernelILi80ELb1E",
 # sizes in its own interpreter, all at once: one after another they took
 # 93.1 s on an H100 (each ~10 s to reach the card), past what the script's
 # limit leaves. The model kernels train_lm must launch on the card (bf16,
-# head dim 32: the tensor-core variants).
+# head dim 32: the tensor-core variants), and serve_lm's (RMSNorm at every
+# forward, the SSD scan at its reduced jamba's prefill; bf16).
 EXAMPLES = ("quickstart", "mv_refresh_pipeline", "incremental_refresh",
             "update_delete_refresh", "partitioned_refresh", "traced_refresh",
-            "train_lm")
+            "train_lm", "serve_lm")
 EXAMPLE_TIMEOUT = 300.0
-TRAIN_LM_KERNELS = ("rmsnorm", "flash_fwd/mma", "flash_bwd_dq/mma", "flash_bwd_dkv/mma")
+MODEL_EXAMPLE_KERNELS = {
+    "train_lm": ("rmsnorm", "flash_fwd/mma", "flash_bwd_dq/mma", "flash_bwd_dkv/mma"),
+    "serve_lm": ("rmsnorm", "ssd_scan"),
+}
 # The shapes train_lm gives them at its SC_SMOKE size (stablelm-3b reduced to
 # d_model 128, 4/4 heads of 32; 8 rows a step in microbatches of 2, 128
 # positions), held against their plain versions in the kernels phase.
@@ -329,6 +361,31 @@ PROFILE_STEPS = 8             # decode steps in the serving profile window
 # positions (a multiple of the scan's 64-position chunk).
 MAMBA_ARCH = "mamba2-2.7b"
 MAMBA_BATCH, MAMBA_PROMPT, MAMBA_NEW, MAMBA_LONG = 4, 512, 64, 32768
+# The MoE and hybrid serving paths: qwen2-moe-a2.7b at full width and depth
+# and jamba-v0.1-52b at full width, its depth cut from 32 layers to one
+# superblock of 8 (7 Mamba-2 + 1 attention, 4 MoE of 16 experts top-2; the
+# whole model is 103 GB in bf16), each answering the serving path's
+# requests at the configs' capacity factor 1.25, where tokens drop. The
+# oracles run drop-free at 16.0 (tests/models/test_decode.py): qwen2-moe at
+# ORACLE_LAYERS, jamba at its 8 layers in f32 (~53 GB), over 512 + 64
+# positions (a multiple of the scan's chunk, as the Mamba-2 oracle).
+MOE_ARCH, JAMBA_ARCH, JAMBA_LAYERS = "qwen2-moe-a2.7b", "jamba-v0.1-52b", 8
+MOE_ORACLE_CAPACITY = 16.0
+JAMBA_ORACLE_NEW = 64
+# the f32 flash forward of the two oracles' cache-less forwards (head dim 128)
+MOE_ORACLE_SHAPE = (SERVE_BATCH, 16, 16, SERVE_PROMPT + SERVE_NEW,
+                    SERVE_PROMPT + SERVE_NEW, 128, True)
+JAMBA_ORACLE_SHAPE = (SERVE_BATCH, 32, 8, SERVE_PROMPT + JAMBA_ORACLE_NEW,
+                      SERVE_PROMPT + JAMBA_ORACLE_NEW, 128, True)
+# RMSNorm (rows, width, dtype) at the MoE phase's shapes: qwen2-moe's d 2048
+# and jamba's d 4096 and gated d_inner 8192 at a prefill of 4 x 512 and a
+# decode step of 4 (bf16), the oracles' cache-less forwards (f32); and the
+# serve_lm example's reduced models (d 64, d_inner 128; 4 x 12 prompts)
+MOE_NORMS = ((2048, 2048, "bfloat16"), (4, 2048, "bfloat16"), (2048, 4096, "bfloat16"),
+             (4, 4096, "bfloat16"), (2048, 8192, "bfloat16"), (4, 8192, "bfloat16"),
+             (4 * 544, 2048, "float32"), (4 * 576, 4096, "float32"),
+             (4 * 576, 8192, "float32"), (48, 64, "bfloat16"), (48, 128, "bfloat16"),
+             (4, 64, "bfloat16"), (4, 128, "bfloat16"))
 # Tolerances of the JAX kernel tests (tests/kernels/): one bf16 rounding of
 # the output, or f32 sums taken in another order.
 RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -895,6 +952,14 @@ def model_kernel_cases(torch, dev):
                       lambda x=x, w=w: (ref.rmsnorm(x, w),),
                       lambda x=x, w=w: (F.rms_norm(x, (width_lm,), w, 1e-6),),
                       4 * rows_lm * width_lm))
+    for rows, width, dn in MOE_NORMS:
+        x = randn((rows, width), getattr(torch, dn))
+        w = randn((width,), getattr(torch, dn), 0.1, 1.0)
+        cases.append(case("rmsnorm", f"{rows}x{width}_{dn}", dn, (x, w),
+                          lambda x=x, w=w: (rn.rmsnorm(x, w),),
+                          lambda x=x, w=w: (ref.rmsnorm(x, w),),
+                          lambda x=x, w=w, d=width: (F.rms_norm(x, (d,), w, 1e-6),),
+                          4 * rows * width))
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         for rows in (2048, 4):   # a 4x512-token prefill; a 4-request decode step
@@ -928,7 +993,9 @@ def model_kernel_cases(torch, dev):
         if dtype == torch.bfloat16:   # the wide heads' training shapes (dk/dv above
             # 128) and the train_lm example's
             shapes += [WIDE_TRAIN_SHAPE, GEMMA_TRAIN_SHAPE, TRAIN_LM_SHAPE]
-        for b, hq, hkv, sq, sk, d, causal in shapes:
+        # the MoE and hybrid oracles' cache-less forwards: the forward alone
+        fwd_only = [MOE_ORACLE_SHAPE, JAMBA_ORACLE_SHAPE] if dtype == torch.float32 else []
+        for b, hq, hkv, sq, sk, d, causal in shapes + fwd_only:
             q = randn((b, hq, sq, d), dtype)
             k = randn((b, hkv, sk, d), dtype)
             v = randn((b, hkv, sk, d), dtype)
@@ -944,6 +1011,8 @@ def model_kernel_cases(torch, dev):
                 lambda q=q, k=k, v=v, c=causal: fa.flash_attention_fwd(q, k, v, causal=c),
                 lambda q=q, k=k, v=v, c=causal: ref.attention_with_lse(q, k, v, causal=c),
                 lib, 4 * pairs * d, samples=samples))
+            if (b, hq, hkv, sq, sk, d, causal) in fwd_only:
+                continue
             o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
             delta = (do.float() * o.float()).sum(-1)
             scale = 1.0 / d**0.5
@@ -1023,6 +1092,11 @@ def ssd_kernel_cases(torch, dev):
         (4, MAMBA_PROMPT, 80, 64, 128, 64, torch.bfloat16, "chunked"),
         (4, MAMBA_PROMPT, 80, 64, 128, 64, torch.float32, "chunked"),
         (1, MAMBA_LONG, 80, 64, 128, 64, torch.bfloat16, "chunked"),
+        # jamba's prefill (state 16, 128 heads), its f32 oracle's forward
+        # (512 + 64 positions), the serve_lm example's reduced jamba
+        (4, SERVE_PROMPT, 128, 64, 16, 64, torch.bfloat16, "chunked"),
+        (4, SERVE_PROMPT + JAMBA_ORACLE_NEW, 128, 64, 16, 64, torch.float32, "chunked"),
+        (4, 12, 8, 16, 16, 64, torch.bfloat16, "chunked"),
         (2, 20, 8, 16, 16, 64, torch.float32, "chunked"),
         (2, 128, 2, 16, 8, 32, torch.float32, "sequential"),
     ]
@@ -1225,6 +1299,28 @@ def log_breakdown(label, wall, by_name, per=1, phase="serve"):
         log(f"{phase}:   {us / per / 1e3:9.4f} ms {count / per:8.1f}x  {k[:90]}")
 
 
+def predicted_model_launches(cfg, forwards, prefills, cacheless=0) -> dict:
+    """Launches of ``forwards`` forwards of ``cfg``, ``prefills`` of them
+    prefills and ``cacheless`` of them cache-less: every forward runs
+    RMSNorm at each layer's norm1, at norm2 where the layer has a
+    feed-forward, at each Mamba-2 layer's gated norm and once at the final
+    norm; a prefill or a cache-less forward runs the SSD scan once per
+    Mamba-2 layer (a decode step is the plain recurrence); only a
+    cache-less forward runs the flash forward, once per attention layer
+    (f32 on the CUDA cores, bf16 on the tensor cores)."""
+    from repro_torch.models.transformer import layer_kinds
+
+    kinds = layer_kinds(cfg)
+    norms = 1 + sum(1 + (mlp is not None) + (mixer == "ssm") for mixer, mlp in kinds)
+    ssm = sum(mixer == "ssm" for mixer, _ in kinds)
+    flash = cacheless * sum(mixer == "attn" for mixer, _ in kinds)
+    want = {"rmsnorm": norms * forwards, "rmsnorm/residual": 0, "rmsnorm/scalar": 0,
+            "flash_fwd": flash, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "ssd_scan": ssm * (prefills + cacheless), **dict.fromkeys(FLASH_VARIANTS, 0)}
+    want["flash_fwd/cuda_core" if cfg.dtype == "float32" else "flash_fwd/mma"] = flash
+    return want
+
+
 def serve_phase(torch, np, dev):
     """stablelm-12b at full width and depth answers SERVE_BATCH requests;
     then the full-width f32 oracle at ORACLE_LAYERS layers, and reduced GQA
@@ -1270,10 +1366,7 @@ def serve_phase(torch, np, dev):
     if out.shape != (SERVE_BATCH, SERVE_NEW) or not bool(
             ((out >= 0) & (out < cfg.vocab_size)).all()):
         raise AssertionError(f"generated tokens {tuple(out.shape)} out of range")
-    forwards = 1 + (SERVE_NEW - 1)
-    want = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards, "rmsnorm/residual": 0, "rmsnorm/scalar": 0,
-            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ssd_scan": 0,
-            **dict.fromkeys(FLASH_VARIANTS, 0)}
+    want = predicted_model_launches(cfg, SERVE_NEW, 1)
     if serve_launches != want:
         raise AssertionError(f"serving launches {serve_launches}, expected {want}")
     log(f"serve: {SERVE_BATCH} requests x {SERVE_PROMPT}-token prompts, "
@@ -1304,17 +1397,15 @@ def serve_phase(torch, np, dev):
     tok = torch.from_numpy(np.random.default_rng(6).integers(
         0, ocfg.vocab_size, (SERVE_BATCH, total))).to(dev)
     ops.reset_launches()
-    worst, top = oracle_check(torch, models, ocfg, omodel, tok, SERVE_PROMPT, "serving")
+    worst, top, where = oracle_check(torch, models, ocfg, omodel, tok, SERVE_PROMPT,
+                                     "serving")
     oracle_launches = {**ops.launches, **ops.variant_launches}
-    want = {"rmsnorm": (2 * ORACLE_LAYERS + 1) * (2 + SERVE_NEW),
-            "rmsnorm/residual": 0, "rmsnorm/scalar": 0, "flash_fwd": ORACLE_LAYERS, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "ssd_scan": 0, **dict.fromkeys(FLASH_VARIANTS, 0),
-            "flash_fwd/cuda_core": ORACLE_LAYERS}   # f32: the CUDA cores
+    want = predicted_model_launches(ocfg, 2 + SERVE_NEW, 1, cacheless=1)
     if oracle_launches != want:
         raise AssertionError(f"oracle launches {oracle_launches}, expected {want}")
     log(f"serve: oracle ({ORACLE_LAYERS} layers, full width, f32) prefill + "
         f"{SERVE_NEW} teacher-forced decode steps match the cache-less forward "
-        f"within {ORACLE_TOL} (max abs diff {worst}; logits up to "
+        f"within {ORACLE_TOL} (max abs diff {worst}: {where}; logits up to "
         f"{top}); launches {oracle_launches}; "
         f"{time.perf_counter() - t0:.3f}s")
     del omodel
@@ -1345,28 +1436,93 @@ def serve_phase(torch, np, dev):
     return serve_launches, oracle_launches
 
 
-def oracle_check(torch, models, cfg, model, tok, prompt_len, label):
+def oracle_check(torch, models, cfg, model, tok, prompt_len, label, moe_stats=None):
     """Prefill ``tok[:, :prompt_len]`` and decode the rest teacher-forced;
     raise unless every step's logits lie within ``ORACLE_TOL`` of the
-    cache-less forward's. Returns the worst difference and the largest
-    logit over the real vocabulary (the padded one holds -1e9)."""
+    cache-less forward's. Returns the worst difference, the largest logit
+    over the real vocabulary (the padded one holds -1e9) and where the
+    differences lie: at the prompt's last position, and at the first,
+    worst and last decode step. With ``moe_stats``, every call adds its MoE
+    layers' dropped and routed (token, expert) pairs there."""
     b, total = tok.shape
     with torch.inference_mode():
-        full, _, _ = models.forward(cfg, model, tok)
+        full, _, _ = models.forward(cfg, model, tok, moe_stats=moe_stats)
         cache = models.make_cache(cfg, b, total, tok.device)
-        last, cache = models.prefill(cfg, model, tok[:, :prompt_len], cache)
-        worst = float((last - full[:, prompt_len - 1]).abs().max())
+        last, cache = models.prefill(cfg, model, tok[:, :prompt_len], cache,
+                                     moe_stats=moe_stats)
+        at_prompt = float((last - full[:, prompt_len - 1]).abs().max())
         ok = bool(torch.isclose(last, full[:, prompt_len - 1], rtol=ORACLE_TOL,
                                 atol=ORACLE_TOL).all())
+        steps = []
         for t in range(prompt_len, total):
-            step, cache = models.decode_step(cfg, model, tok[:, t], cache, t)
-            worst = max(worst, float((step - full[:, t]).abs().max()))
+            step, cache = models.decode_step(cfg, model, tok[:, t], cache, t,
+                                             moe_stats=moe_stats)
+            steps.append(float((step - full[:, t]).abs().max()))
             ok = ok and bool(torch.isclose(step, full[:, t], rtol=ORACLE_TOL,
                                            atol=ORACLE_TOL).all())
+    worst = max([at_prompt, *steps])
     if not ok or not bool(torch.isfinite(full).all()):
         raise AssertionError(f"{label} oracle: prefill/decode logits differ from the "
                              f"forward by up to {worst} (tolerance {ORACLE_TOL})")
-    return worst, float(full[..., :cfg.vocab_size].abs().max())
+    k = max(range(len(steps)), key=steps.__getitem__)
+    where = (f"prompt's last position {at_prompt}, decode steps first {steps[0]}, "
+             f"worst {steps[k]} (step {k}), last {steps[-1]}")
+    return worst, float(full[..., :cfg.vocab_size].abs().max()), where
+
+
+def oracle_causes(torch, models, cfg, model, tok, prompt_len, label) -> str:
+    """What an oracle's difference is made of, on the oracle's own model
+    and tokens (f32). The gain: the largest change of the cache-less
+    forward's logits when every element of the embedding table moves by
+    one f32 ulp of 1 (relative 2^-23, seeded signs), which is what the
+    model makes of the rounding that separates the cached path from the
+    cache-less one. And, where the model has Mamba-2 layers, the first
+    one's output through a prefill of ``prompt_len`` positions and
+    single-step decodes from its handed-off state against the scan over
+    every position, on that layer's own input; raises unless within
+    REL_TOL of the output's largest value (a fault of the state hand-off
+    or of the decode recurrence would show there, not amplified)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+
+    emb = model.embed
+    with torch.inference_mode():
+        full, _, _ = models.forward(cfg, model, tok)
+        saved = emb.detach().clone()
+        gen = torch.Generator(device=emb.device).manual_seed(3)
+        up = torch.rand(emb.shape, generator=gen, device=emb.device) < 0.5
+        emb.mul_(torch.where(up, 1.0 + 2.0 ** -23, 1.0 - 2.0 ** -23))
+        del up
+        moved, _, _ = models.forward(cfg, model, tok)
+        emb.copy_(saved)
+        del saved
+        v = cfg.vocab_size
+        gain = float((moved[..., :v] - full[..., :v]).abs().max())
+        out = f"gain {gain} (logits moved by a 1-ulp embedding change)"
+        ssm = [i for i, layer in enumerate(model.layers) if isinstance(layer.mixer, L.SSM)]
+        if not ssm:
+            return out
+        layer = model.layers[ssm[0]]
+        h = ops.rmsnorm(models.embed_inputs(cfg, model, tok), layer.norm1, eps=cfg.norm_eps)
+        want, _ = L.ssm_forward(cfg, layer.mixer, h)
+        state = L.make_ssm_cache(cfg, tok.shape[0], tok.device)
+        got, state = L.ssm_forward(cfg, layer.mixer, h[:, :prompt_len], state)
+        ys = [got]
+        for t in range(prompt_len, tok.shape[1]):
+            y, state = L.ssm_forward(cfg, layer.mixer, h[:, t:t + 1], state)
+            ys.append(y)
+        got = torch.cat(ys, dim=1)
+        diff = (got - want).abs()
+        top = float(want.abs().max())
+        at_prompt = float(diff[:, :prompt_len].max())
+        at_decode = float(diff[:, prompt_len:].max())
+    if max(at_prompt, at_decode) > REL_TOL["float32"] * top:
+        raise AssertionError(f"{label}: Mamba-2 layer {ssm[0]} through prefill + decode "
+                             f"differs from its scan by {max(at_prompt, at_decode)} "
+                             f"(largest output {top})")
+    return (f"{out}; Mamba-2 layer {ssm[0]} (state {cfg.ssm_state}, {cfg.ssm_heads} "
+            f"heads of {cfg.ssm_head_dim}) prefill + decode against its scan: "
+            f"prompt {at_prompt}, decode steps {at_decode} (largest output {top})")
 
 
 def mamba_phase(torch, np, dev):
@@ -1409,11 +1565,6 @@ def mamba_phase(torch, np, dev):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t
 
-    def expect(forwards, scans):
-        return {"rmsnorm": (2 * cfg.n_layers + 1) * forwards, "rmsnorm/residual": 0, "rmsnorm/scalar": 0,
-                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ssd_scan": scans,
-                **dict.fromkeys(FLASH_VARIANTS, 0)}
-
     generate(prompt, 2)                           # warm-up (cuBLAS, allocator)
     _, prefill_s = generate(prompt, 1)            # prefill and one argmax
     ops.reset_launches()
@@ -1424,9 +1575,9 @@ def mamba_phase(torch, np, dev):
     if out.shape != (MAMBA_BATCH, MAMBA_NEW) or not bool(
             ((out >= 0) & (out < cfg.vocab_size)).all()):
         raise AssertionError(f"generated tokens {tuple(out.shape)} out of range")
-    if serve_launches != expect(MAMBA_NEW, cfg.n_layers):
+    if serve_launches != predicted_model_launches(cfg, MAMBA_NEW, 1):
         raise AssertionError(f"mamba serving launches {serve_launches}, expected "
-                             f"{expect(MAMBA_NEW, cfg.n_layers)}")
+                             f"{predicted_model_launches(cfg, MAMBA_NEW, 1)}")
     log(f"mamba: {MAMBA_BATCH} requests x {MAMBA_PROMPT}-token prompts, {MAMBA_NEW} new "
         f"tokens each: total {total_s:.4f}s, prefill {prefill_s:.4f}s, decode "
         f"{decode_ms:.3f} ms/token (per step of {MAMBA_BATCH}), "
@@ -1466,9 +1617,9 @@ def mamba_phase(torch, np, dev):
     long_out, long_s = generate(long_prompt, 1)
     long_launches = {**ops.launches, **ops.variant_launches}
     long_peak = torch.cuda.max_memory_allocated()
-    if long_launches != expect(1, cfg.n_layers):
+    if long_launches != predicted_model_launches(cfg, 1, 1):
         raise AssertionError(f"long prefill launches {long_launches}, expected "
-                             f"{expect(1, cfg.n_layers)}")
+                             f"{predicted_model_launches(cfg, 1, 1)}")
     if long_out.shape != (1, 1) or not 0 <= int(long_out) < cfg.vocab_size:
         raise AssertionError(f"long prefill token {long_out.tolist()} out of range")
     log(f"mamba: one {MAMBA_LONG}-token prompt: prefill {long_s:.4f}s "
@@ -1484,16 +1635,18 @@ def mamba_phase(torch, np, dev):
     tok = torch.from_numpy(rng.integers(0, ocfg.vocab_size,
                                         (MAMBA_BATCH, MAMBA_PROMPT + MAMBA_NEW))).to(dev)
     ops.reset_launches()
-    worst, top = oracle_check(torch, models, ocfg, omodel, tok, MAMBA_PROMPT, "mamba")
+    worst, top, where = oracle_check(torch, models, ocfg, omodel, tok, MAMBA_PROMPT,
+                                     "mamba")
     oracle_launches = {**ops.launches, **ops.variant_launches}
-    want = {**expect(0, 2 * ORACLE_LAYERS),
-            "rmsnorm": (2 * ORACLE_LAYERS + 1) * (2 + MAMBA_NEW)}
+    want = predicted_model_launches(ocfg, 2 + MAMBA_NEW, 1, cacheless=1)
     if oracle_launches != want:
         raise AssertionError(f"mamba oracle launches {oracle_launches}, expected {want}")
+    causes = oracle_causes(torch, models, ocfg, omodel, tok, MAMBA_PROMPT, "mamba")
     log(f"mamba: oracle ({ORACLE_LAYERS} layers, full width, f32) prefill + {MAMBA_NEW} "
         f"teacher-forced decode steps match the cache-less forward over "
-        f"{MAMBA_PROMPT + MAMBA_NEW} positions within {ORACLE_TOL} (max abs diff {worst}; "
-        f"logits up to {top}); launches {oracle_launches}; {time.perf_counter() - t0:.3f}s")
+        f"{MAMBA_PROMPT + MAMBA_NEW} positions within {ORACLE_TOL} (max abs diff {worst}: "
+        f"{where}; logits up to {top}); {causes}; launches {oracle_launches}; "
+        f"{time.perf_counter() - t0:.3f}s")
     del omodel
     torch.cuda.empty_cache()
 
@@ -1518,6 +1671,215 @@ def mamba_phase(torch, np, dev):
         f"{card_tok[0].tolist()}; forward logits within {CARD_CPU_LOGIT_TOL} (max abs "
         f"diff {diff}); {time.perf_counter() - t0:.3f}s")
     return serve_launches, long_launches, oracle_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: MoE and hybrid serving
+# ---------------------------------------------------------------------------
+
+def moe_serve(torch, np, dev, cfg, label):
+    """``cfg`` (bf16, random seeded weights) answers SERVE_BATCH requests of
+    SERVE_PROMPT tokens with SERVE_NEW greedy tokens through
+    ``greedy_generate``, its launches held to
+    :func:`predicted_model_launches`; then one prefill and one decode step
+    counting the (token, expert) pairs their MoE layers drop, and the
+    prefill and a decode window under ``torch.profiler``. Returns the
+    serving run's launches and its numbers."""
+    from repro_torch import models, serve
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import moe_capacity
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = models.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, config counts {cfg.param_count()}")
+    n_moe = sum(mlp == "moe" for _, mlp in models.transformer.layer_kinds(cfg))
+    log(f"moe: {label}: {cfg.name} {cfg.n_layers} layers ({n_moe} MoE of "
+        f"{cfg.moe_experts} experts top-{cfg.moe_top_k}, ffe {cfg.moe_d_ff}, shared "
+        f"{cfg.moe_shared_experts}) d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.head_dim_} vocab {cfg.vocab_size} "
+        f"capacity factor {cfg.moe_capacity_factor} {cfg.dtype}: {n_params} parameters, "
+        f"{sum(p.nbytes for p in model.parameters())} B, init "
+        f"{time.perf_counter() - t0:.3f}s")
+    prompt = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)))
+
+    def generate(max_new):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = serve.greedy_generate(cfg, model, prompt, max_new)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    generate(2)                                   # warm-up (cuBLAS, allocator)
+    _, prefill_s = generate(1)                    # prefill and one argmax
+    ops.reset_launches()
+    out, total_s = generate(SERVE_NEW)
+    launches = {**ops.launches, **ops.variant_launches}
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = (total_s - prefill_s) / (SERVE_NEW - 1) * 1e3
+    if out.shape != (SERVE_BATCH, SERVE_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"{label}: generated tokens {tuple(out.shape)} out of range")
+    want = predicted_model_launches(cfg, SERVE_NEW, 1)
+    if launches != want:
+        raise AssertionError(f"{label}: serving launches {launches}, expected {want}")
+    numbers = dict(prefill_s=prefill_s, decode_ms=decode_ms,
+                   tokens_per_s=SERVE_BATCH * SERVE_NEW / total_s, peak=peak)
+    log(f"moe: {label}: {SERVE_BATCH} requests x {SERVE_PROMPT}-token prompts, "
+        f"{SERVE_NEW} new tokens each: total {total_s:.4f}s, prefill {prefill_s:.4f}s, "
+        f"decode {decode_ms:.3f} ms/token (per step of {SERVE_BATCH}), "
+        f"{numbers['tokens_per_s']:.2f} tokens/s; max_memory_allocated {peak} B; "
+        f"launches {launches} (as predicted)")
+    log(f"moe: {label}: sample {out[0, :12].tolist()}")
+    pre_stats, dec_stats = {}, {}
+    with torch.inference_mode():
+        cache = models.make_cache(cfg, SERVE_BATCH, SERVE_PROMPT + 1, dev)
+        logits, cache = models.prefill(cfg, model, prompt.to(dev), cache,
+                                       moe_stats=pre_stats)
+        models.decode_step(cfg, model, torch.argmax(logits[..., :cfg.vocab_size], -1),
+                           cache, SERVE_PROMPT, moe_stats=dec_stats)
+    del cache, logits
+    log(f"moe: {label}: dropped (token, expert) pairs at capacity factor "
+        f"{cfg.moe_capacity_factor}: prefill {pre_stats['dropped']} of "
+        f"{pre_stats['routed']} ({moe_capacity(cfg, SERVE_BATCH * SERVE_PROMPT)} slots an "
+        f"expert), one decode step {dec_stats['dropped']} of {dec_stats['routed']} "
+        f"({moe_capacity(cfg, SERVE_BATCH)} slot an expert), over {n_moe} MoE layers")
+    pre_wall, pre, _ = device_kernel_times(
+        torch, lambda: serve.greedy_generate(cfg, model, prompt, 1))
+    both_wall, both, _ = device_kernel_times(
+        torch, lambda: serve.greedy_generate(cfg, model, prompt, 1 + PROFILE_STEPS))
+    dec = {k: (us - pre.get(k, (0.0, 0))[0], n - pre.get(k, (0.0, 0))[1])
+           for k, (us, n) in both.items()}
+    log_breakdown(f"{label} prefill ({SERVE_BATCH} x {SERVE_PROMPT} tokens)", pre_wall, pre,
+                  phase="moe")
+    log_breakdown(f"{label} decode step (mean of {PROFILE_STEPS})", both_wall - pre_wall,
+                  {k: v for k, v in dec.items() if v[0] > 0}, PROFILE_STEPS, phase="moe")
+    if cfg.has_mixer("ssm"):   # the scan at state 16: its three kernels' share
+        scan_us = sum(us for k, (us, _) in pre.items() if "ssd_" in k)
+        log(f"moe: {label}: the SSD scan's kernels {scan_us / 1e3:.4f} ms of the prefill")
+    del model, out
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def moe_oracle(torch, np, dev, cfg, new, label):
+    """``cfg`` in f32 at ``MOE_ORACLE_CAPACITY`` (drop-free), random seeded
+    weights: prefill + ``new`` teacher-forced decode steps against the
+    cache-less forward (:func:`oracle_check`), launches as predicted, no
+    pair dropped; then :func:`oracle_causes`. Returns the launches."""
+    from repro_torch import models
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = models.init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    tok = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + new))).to(dev)
+    ops.reset_launches()
+    stats = {}
+    worst, top, where = oracle_check(torch, models, cfg, model, tok, SERVE_PROMPT, label,
+                                     stats)
+    launches = {**ops.launches, **ops.variant_launches}
+    want = predicted_model_launches(cfg, 2 + new, 1, cacheless=1)
+    if launches != want:
+        raise AssertionError(f"{label} oracle launches {launches}, expected {want}")
+    causes = oracle_causes(torch, models, cfg, model, tok, SERVE_PROMPT, label)
+    if stats.get("dropped"):
+        raise AssertionError(f"{label} oracle dropped {stats['dropped']} pairs at "
+                             f"capacity factor {cfg.moe_capacity_factor}")
+    routing = (f"capacity factor {cfg.moe_capacity_factor}: 0 of {stats['routed']} pairs "
+               f"dropped" if stats else "no MoE layer")
+    log(f"moe: {label} oracle ({cfg.n_layers} layers, d_model {cfg.d_model}, f32, "
+        f"{routing}) prefill + {new} teacher-forced decode steps match the cache-less "
+        f"forward over {SERVE_PROMPT + new} positions within {ORACLE_TOL} (max abs diff "
+        f"{worst}: {where}; logits up to {top}); {causes}; launches {launches}; "
+        f"max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B; {time.perf_counter() - t0:.3f}s")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_card_vs_cpu(torch, np, dev):
+    """Reduced qwen2-moe-a2.7b and jamba-v0.1-52b (capacity factor 1.25:
+    tokens drop), llava-next-34b (seeded patch embeddings) and
+    musicgen-large, f32, card against CPU: the same greedy tokens, forward
+    logits within CARD_CPU_LOGIT_TOL."""
+    from repro_torch import configs, models, serve
+
+    rng = np.random.default_rng(13)
+    for arch in (MOE_ARCH, JAMBA_ARCH, "llava-next-34b", "musicgen-large"):
+        t0 = time.perf_counter()
+        scfg = configs.get_config(arch).reduced(dtype="float32")
+        cpu_model = models.init_params(scfg, torch.Generator().manual_seed(2), "cpu")
+        card_model = models.init_params(scfg, torch.Generator().manual_seed(2),
+                                        "cpu").to(dev)
+        sprompt = torch.from_numpy(rng.integers(0, scfg.vocab_size, (2, 24)))
+        patches = None
+        if scfg.frontend == "vlm":
+            patches = torch.from_numpy(rng.standard_normal(
+                (2, scfg.vlm_patches, scfg.d_model)).astype(np.float32))
+        cpu_tok = serve.greedy_generate(scfg, cpu_model, sprompt, 8, "cpu",
+                                        patch_embeds=patches)
+        card_tok = serve.greedy_generate(scfg, card_model, sprompt, 8,
+                                         patch_embeds=patches).cpu()
+        if not torch.equal(cpu_tok, card_tok):
+            raise AssertionError(f"{arch}: greedy tokens differ card vs CPU:\n"
+                                 f"{cpu_tok}\n{card_tok}")
+        with torch.inference_mode():
+            cpu_logits, cpu_aux, _ = models.forward(scfg, cpu_model, sprompt,
+                                                    patch_embeds=patches)
+            card_logits, card_aux, _ = models.forward(
+                scfg, card_model, sprompt.to(dev),
+                patch_embeds=None if patches is None else patches.to(dev))
+        diff = float((card_logits.cpu() - cpu_logits).abs().max())
+        if not bool(torch.isclose(card_logits.cpu(), cpu_logits, rtol=CARD_CPU_LOGIT_TOL,
+                                  atol=CARD_CPU_LOGIT_TOL).all()):
+            raise AssertionError(f"{arch}: forward logits differ card vs CPU by {diff}")
+        if not math.isclose(float(card_aux), float(cpu_aux), rel_tol=CARD_CPU_LOGIT_TOL,
+                            abs_tol=CARD_CPU_LOGIT_TOL):
+            raise AssertionError(f"{arch}: MoE aux {float(card_aux)} on the card, "
+                                 f"{float(cpu_aux)} on the CPU")
+        log(f"moe: reduced {arch} ({scfg.family}, f32{', 8 patches' if patches is not None else ''}) "
+            f"card vs CPU: the same greedy tokens {card_tok[0].tolist()}; forward logits "
+            f"within {CARD_CPU_LOGIT_TOL} (max abs diff {diff}), aux {float(card_aux)}; "
+            f"{time.perf_counter() - t0:.3f}s")
+
+
+def moe_phase(torch, np, dev):
+    """qwen2-moe-a2.7b at full width and depth and jamba-v0.1-52b at full
+    width and JAMBA_LAYERS layers serve (:func:`moe_serve`); each one's f32
+    oracle (:func:`moe_oracle`: qwen2-moe at ORACLE_LAYERS, jamba at its
+    JAMBA_LAYERS, then again with dense FFNs in place of its MoE layers);
+    the reduced models card against CPU. Returns the launches of the two
+    serving runs and the three oracles."""
+    import dataclasses as dc
+
+    from repro_torch import configs
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    qwen = configs.get_config(MOE_ARCH)
+    jamba = dc.replace(configs.get_config(JAMBA_ARCH), n_layers=JAMBA_LAYERS)
+    runs = []
+    for cfg, label, oracle_layers, new in ((qwen, "qwen2-moe", ORACLE_LAYERS, SERVE_NEW),
+                                          (jamba, "jamba-8L", JAMBA_LAYERS, JAMBA_ORACLE_NEW)):
+        launches, _ = moe_serve(torch, np, dev, cfg, label)
+        runs.append(launches)
+        ocfg = dc.replace(cfg, n_layers=oracle_layers, dtype="float32",
+                          moe_capacity_factor=MOE_ORACLE_CAPACITY)
+        runs.append(moe_oracle(torch, np, dev, ocfg, new, label))
+    # jamba's oracle again with dense FFNs in the MoE layers' place: what the
+    # SSM stack alone makes of the rounding, without top-k routing
+    dense = dc.replace(jamba, dtype="float32", pattern=tuple(
+        (mixer, "mlp" if ffn == "moe" else ffn) for mixer, ffn in jamba.pattern))
+    runs.append(moe_oracle(torch, np, dev, dense, JAMBA_ORACLE_NEW, "jamba-8L-dense"))
+    moe_card_vs_cpu(torch, np, dev)
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2353,7 +2715,7 @@ def lint_phase(dev) -> None:
 
 def examples_phase() -> None:
     """Each of ``EXAMPLES`` with ``SC_SMOKE=1`` on the card, each in its own
-    interpreter with its own time limit, all seven started together (one
+    interpreter with its own time limit, all eight started together (one
     working directory, a temporary one; output to files there). A non-zero
     exit or a timeout fails the phase and stops the others. Logs each
     example's seconds (start to exit, beside the six others) and its
@@ -2395,10 +2757,10 @@ def examples_phase() -> None:
             launches = {k: v for k, v in json.loads(last.removeprefix("launches ")).items()
                         if v}
             log(f"example {name}: {seconds[name]:.1f}s, launches {launches}")
-            if name == "train_lm":
-                unlaunched = [k for k in TRAIN_LM_KERNELS if not launches.get(k)]
+            if name in MODEL_EXAMPLE_KERNELS:
+                unlaunched = [k for k in MODEL_EXAMPLE_KERNELS[name] if not launches.get(k)]
                 if unlaunched:
-                    raise AssertionError(f"train_lm never launched {unlaunched}")
+                    raise AssertionError(f"{name} never launched {unlaunched}")
             else:
                 mv_launches.update(launches)
     unlaunched = [k for k in (*ROUND_KERNELS, "pid_hist") if not mv_launches[k]]
@@ -2415,8 +2777,8 @@ def check_finite(torch, name, table):
 
 # The phases ``--only`` can run on their own (after the card and build
 # phases): those that need no other phase's state.
-ONLY_PHASES = ("lint", "kernels", "multihost", "mqo", "examples", "serve", "mamba",
-               "train")
+ONLY_PHASES = ("lint", "kernels", "multihost", "mqo", "examples", "serve", "moe",
+               "mamba", "train")
 
 
 def parse_only(argv) -> tuple[str, ...] | None:
@@ -2460,6 +2822,7 @@ def run_only(torch, np, dp, dev, bw, inst_rate, per_row, only, t_start) -> int:
                       ("mqo", lambda: mqo_phase(torch, core, mv, dp)),
                       ("examples", examples_phase),
                       ("serve", lambda: serve_phase(torch, np, dev)),
+                      ("moe", lambda: moe_phase(torch, np, dev)),
                       ("mamba", lambda: mamba_phase(torch, np, dev)),
                       ("train", lambda: train_phase(torch, np, dev, fresh_train_root()))):
         if name in only:
@@ -2687,27 +3050,33 @@ def main() -> int:
     serve_launches, oracle_launches = serve_phase(torch, np, dev)
     log(f"phase serve {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 12. Mamba-2 serving ------------------------------------------------------
+    # -- 12. MoE and hybrid serving -----------------------------------------------
+    t_phase = time.perf_counter()
+    moe_launches = moe_phase(torch, np, dev)
+    log(f"phase moe {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 13. Mamba-2 serving ------------------------------------------------------
     t_phase = time.perf_counter()
     mamba_launches = mamba_phase(torch, np, dev)
     log(f"phase mamba {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 13. training ----------------------------------------------------------------
+    # -- 14. training ----------------------------------------------------------------
     t_phase = time.perf_counter()
     train_launches = train_phase(torch, np, dev, fresh_train_root())
     log(f"phase train {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 14. kernels line -----------------------------------------------------------
+    # -- 15. kernels line -----------------------------------------------------------
     # Each kernel reports the times of the case its path's calls take (the
     # data plane's 16.7M-row columns, RMSNorm on the bf16 serving prefill,
     # the flash kernels on the bf16 training shape, the SSD scan on the bf16
     # Mamba-2 serving prefill) and the worst error over all its cases. The
     # model kernels' launches are those of every model path (stablelm
-    # serving and its oracle, Mamba-2 serving, long prefill and oracle,
-    # training). The residual and the scalar RMSNorm's launches are their
+    # serving and its oracle, qwen2-moe and jamba-8L serving and their
+    # oracles, jamba-8L's dense oracle, Mamba-2 serving, long prefill and oracle, training). The residual and the scalar RMSNorm's launches are their
     # variants' shares of the RMSNorm count (no model path passes a
     # residual or a row off 16 bytes); the vector RMSNorm's are the rest.
-    model_runs = (serve_launches, oracle_launches, *mamba_launches, train_launches)
+    model_runs = (serve_launches, oracle_launches, *moe_launches, *mamba_launches,
+                  train_launches)
     model_launches = {k: sum(run[k] for run in model_runs) for k in serve_launches}
     model_launches["rmsnorm_residual"] = model_launches.pop("rmsnorm/residual")
     model_launches["rmsnorm_scalar"] = model_launches.pop("rmsnorm/scalar")
@@ -2771,7 +3140,8 @@ def main() -> int:
         ))
     log(f"launches: main path {main['launches']}; partitioned path {part_launches}; "
         f"multi-host path (forked hosts) {mh_launches}; MQO path {mqo_launches}; "
-        f"serving {serve_launches}; serving oracle {oracle_launches}; Mamba-2 serving, "
+        f"serving {serve_launches}; serving oracle {oracle_launches}; qwen2-moe serving, "
+        f"oracle, jamba-8L serving, oracle, dense oracle {moe_launches}; Mamba-2 serving, "
         f"long prefill, oracle {list(mamba_launches)}; training {train_launches}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

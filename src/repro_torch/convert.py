@@ -58,15 +58,29 @@ def _weight(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
 
+def _ffn_names(cfg: ModelConfig, mlp: str) -> tuple[str, ...]:
+    """The feed-forward's tensors under their dotted names: a dense MLP's
+    ``wi, wo``; an MoE's ``router, w_in, w_out`` and its shared and dense
+    MLPs' where the config has them."""
+    if mlp != "moe":
+        return ("wi", "wo")
+    return (("router", "w_in", "w_out")
+            + (("shared.wi", "shared.wo") if cfg.moe_shared_experts else ())
+            + (("dense.wi", "dense.wo") if cfg.moe_dense_residual else ()))
+
+
 def named_reference_arrays(cfg: ModelConfig, tree: Mapping) -> dict[str, np.ndarray]:
     """A JAX parameter tree of numpy arrays (``embed``, ``blocks.subI.{norm1,
-    mixer.{...}, norm2, ffn.{wi,wo}}`` stacked on a leading group axis, with
+    mixer.{...}, norm2, ffn.{...}}`` stacked on a leading group axis, with
     an attention mixer's ``wq, wk, wv, wo`` or a Mamba-2 mixer's 13 tensors
-    (``layers.SSM_NAMES``) and no ``norm2``/``ffn`` on a layer without an
-    MLP; ``final_norm`` and ``lm_head`` unless embeddings are tied) keyed by
-    the port's parameter names (``Transformer.named_parameters()`` order):
-    group g's sub-layer i is layer ``g * len(cfg.pattern) + i``. The same
-    mapping carries the AdamW moments, which share the tree's structure."""
+    (``layers.SSM_NAMES``), a dense MLP's ``ffn.{wi,wo}`` or an MoE's
+    ``ffn.{router,w_in,w_out}`` with ``ffn.shared.{wi,wo}`` and
+    ``ffn.dense.{wi,wo}`` where it has them, and no ``norm2``/``ffn`` on a
+    layer without one; ``final_norm``, ``lm_head`` unless embeddings are
+    tied, ``patch_adapter`` for the ``vlm`` frontend) keyed by the port's
+    parameter names (``Transformer.named_parameters()``): group g's
+    sub-layer i is layer ``g * len(cfg.pattern) + i``. The same mapping
+    carries the AdamW moments, which share the tree's structure."""
     check_supported(cfg)
     out = {"embed": np.asarray(tree["embed"])}
     for n, (mixer, mlp) in enumerate(layer_kinds(cfg)):
@@ -77,12 +91,25 @@ def named_reference_arrays(cfg: ModelConfig, tree: Mapping) -> dict[str, np.ndar
             out[f"layers.{n}.mixer.{k}"] = np.asarray(sub["mixer"][k][g])
         if mlp is not None:
             out[f"layers.{n}.norm2"] = np.asarray(sub["norm2"][g])
-            for k in ("wi", "wo"):
-                out[f"layers.{n}.ffn.{k}"] = np.asarray(sub["ffn"][k][g])
+            for k in _ffn_names(cfg, mlp):
+                node = sub["ffn"]
+                for part in k.split("."):
+                    node = node[part]
+                out[f"layers.{n}.ffn.{k}"] = np.asarray(node[g])
     out["final_norm"] = np.asarray(tree["final_norm"])
     if not cfg.tie_embeddings:
         out["lm_head"] = np.asarray(tree["lm_head"])
+    if cfg.frontend == "vlm":
+        out["patch_adapter"] = np.asarray(tree["patch_adapter"])
     return out
+
+
+def _ffn(cfg: ModelConfig, mlp: str, w: dict, pre: str) -> L.MLP | L.MoE:
+    if mlp != "moe":
+        return L.MLP(w[f"{pre}ffn.wi"], w[f"{pre}ffn.wo"])
+    mlps = {part: L.MLP(w[f"{pre}ffn.{part}.wi"], w[f"{pre}ffn.{part}.wo"])
+            for part in ("shared", "dense") if f"{pre}ffn.{part}.wi" in w}
+    return L.MoE(w[f"{pre}ffn.router"], w[f"{pre}ffn.w_in"], w[f"{pre}ffn.w_out"], **mlps)
 
 
 def params_from_reference(cfg: ModelConfig, tree: Mapping,
@@ -99,10 +126,10 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping,
         mix = (L.Attention(*(w[f"{pre}mixer.{k}"] for k in ("wq", "wk", "wv", "wo")))
                if mixer == "attn" else
                L.SSM(**{k: w[f"{pre}mixer.{k}"] for k in L.SSM_NAMES}))
-        ffn = () if mlp is None else (
-            w[f"{pre}norm2"], L.MLP(w[f"{pre}ffn.wi"], w[f"{pre}ffn.wo"]))
+        ffn = () if mlp is None else (w[f"{pre}norm2"], _ffn(cfg, mlp, w, pre))
         layers.append(Block(w[f"{pre}norm1"], mix, *ffn))
-    return Transformer(cfg, w["embed"], layers, w["final_norm"], w.get("lm_head"))
+    return Transformer(cfg, w["embed"], layers, w["final_norm"], w.get("lm_head"),
+                       w.get("patch_adapter"))
 
 
 def train_state_from_reference(cfg: ModelConfig, state_tree: Mapping,

@@ -1,14 +1,14 @@
 """Layer library of the decoder LM on PyTorch: GQA attention (RoPE, KV
-cache, head padding), GLU/GeGLU MLPs and the Mamba-2 (SSD) block, the
-counterpart of ``repro.models.layers``.
+cache, head padding), GLU/GeGLU MLPs, the token-choice MoE and the Mamba-2
+(SSD) block, the counterpart of ``repro.models.layers``.
 
 Parameters are kept as the JAX package keeps them, for ``x @ w``: a
-projection weight is ``(in, out)``. Projections and the MLP are plain
-products, as the JAX package leaves them to XLA; attention without a cache,
-the SSD scan of a prefill or a cache-less forward, and RMSNorm go through
-``repro_torch.kernels.ops`` (hand-written kernels on the card); the Mamba-2
-decode step is the plain recurrence, as in the JAX package. MoE layers come
-with a later slice of the port.
+projection weight is ``(in, out)``. Projections, the MLP and the MoE's
+routing, dispatch and expert products are plain torch ops, as the JAX
+package leaves them to XLA (no Pallas kernel there); attention without a
+cache, the SSD scan of a prefill or a cache-less forward, and RMSNorm go
+through ``repro_torch.kernels.ops`` (hand-written kernels on the card); the
+Mamba-2 decode step is the plain recurrence, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -166,11 +166,127 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int | None = None) ->
     return MLP(wi, wo)
 
 
-def mlp_forward(kind: str, p: MLP, x: torch.Tensor) -> torch.Tensor:
-    gate, up = (x @ p.wi).chunk(2, dim=-1)
+def _glu(kind: str, h: torch.Tensor) -> torch.Tensor:
+    gate, up = h.chunk(2, dim=-1)
     # jax.nn.gelu defaults to the tanh approximation
     act = F.gelu(gate, approximate="tanh") if kind == "geglu" else F.silu(gate)
-    return (act * up) @ p.wo
+    return act * up
+
+
+def mlp_forward(kind: str, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    return _glu(kind, x @ p.wi) @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k, gather/scatter dispatch with capacity dropping)
+# ---------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """One MoE feed-forward: ``router`` (d, E_pad) f32, ``w_in`` (E_pad, d,
+    2·ffe) (each expert's fused gate|up), ``w_out`` (E_pad, ffe, d); the
+    always-on ``shared`` MLP (width ``moe_shared_experts · moe_d_ff``) and
+    the ``dense`` residual MLP (width ``d_ff``, arctic), each or ``None``."""
+
+    def __init__(self, router: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
+                 shared: MLP | None = None, dense: MLP | None = None):
+        super().__init__()
+        self.router, self.w_in, self.w_out = weight(router), weight(w_in), weight(w_out)
+        self.shared = shared
+        self.dense = dense
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator) -> MoE:
+    """An MoE layer at the JAX package's scales (``layers.py:166``): the
+    router and each expert's projections scaled by 1/sqrt(fan-in), the
+    experts ``pad_experts_to`` adds zero (the router masks them)."""
+    dt = torch_dtype(cfg)
+    d, e, ffe = cfg.d_model, cfg.moe_experts, cfg.moe_d_ff
+    ep = cfg.moe_experts_padded
+    router = normal(gen, (d, ep), 1.0 / math.sqrt(d), torch.float32)
+    w_in = normal(gen, (ep, d, 2 * ffe), 1.0 / math.sqrt(d), dt)
+    w_out = normal(gen, (ep, ffe, d), 1.0 / math.sqrt(ffe), dt)
+    w_in[e:] = 0
+    w_out[e:] = 0
+    shared = (init_mlp(cfg, gen, cfg.moe_shared_experts * ffe)
+              if cfg.moe_shared_experts else None)
+    dense = init_mlp(cfg, gen, cfg.d_ff) if cfg.moe_dense_residual else None
+    return MoE(router, w_in, w_out, shared, dense)
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots per expert for a call on ``tokens`` tokens: ``ceil(T·k·factor /
+    E_pad)``, at least 1 (a decode step of 4 tokens has 1 and drops)."""
+    return max(int(math.ceil(tokens * cfg.moe_top_k * cfg.moe_capacity_factor
+                             / cfg.moe_experts_padded)), 1)
+
+
+def moe_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor, mlp_kind: str = "glu",
+                stats: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(y, aux)``: the MoE layer on x (b, s, d) and its Switch-style
+    load-balancing loss ``E · Σ_e mean(probs_e) · mean(count_e)``, the
+    gather path of ``layers.py:200`` (``moe_impl == "shard_map_ep"`` takes
+    it too: expert parallelism comes with sharding).
+
+    Each token goes to its top-k experts by router probability (f32, padded
+    experts masked with -1e9), weighted by the renormalised top-k
+    probabilities. The T·k (token, expert) pairs are sorted stably by expert
+    and each takes the next slot of its expert's ``moe_capacity`` slots; a
+    pair past them goes to the drop bin (slot ``cap``) with weight 0. The
+    experts run as two batched products over the (E, cap + 1, d) buffer.
+    Each token sums its k weighted outputs in f32 in ascending expert
+    order, the order of the reference's sorted scatter-add (no atomics: the
+    same sum on every run), casts to x's type and adds the shared and the
+    dense MLPs. With ``stats``, adds the pairs dropped under ``"dropped"``
+    and the pairs routed under ``"routed"`` (a host sync each)."""
+    b, s, d = x.shape
+    e, k = cfg.moe_experts_padded, cfg.moe_top_k
+    t = b * s
+    xf = x.reshape(t, d)
+    logits = xf.float() @ p.router                            # (T, E_pad)
+    if e > cfg.moe_experts:
+        logits = logits.masked_fill(
+            torch.arange(e, device=x.device) >= cfg.moe_experts, -1e9)
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, k, dim=-1)                 # (T, k)
+    topw = topw / topw.sum(dim=-1, keepdim=True)
+
+    cap = moe_capacity(cfg, t)
+    flat_e = topi.reshape(-1)                                 # (T·k,)
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    starts = torch.searchsorted(sorted_e, torch.arange(e, device=x.device))
+    pos = torch.arange(t * k, device=x.device) - starts[sorted_e]
+    token_of = order // k
+    valid = pos < cap
+    dest_c = torch.where(valid, pos, cap)                     # cap: the drop bin
+    if stats is not None:
+        dropped = int((~valid).sum())
+        stats["dropped"] = stats.get("dropped", 0) + dropped
+        stats["routed"] = stats.get("routed", 0) + t * k
+
+    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[sorted_e, dest_c] = xf[token_of]      # only the drop bin takes two writes
+    hout = torch.bmm(_glu(mlp_kind, torch.bmm(buf, p.w_in)), p.w_out)  # (E, cap+1, d)
+
+    # back to (token, slot) order, then each token's k slots by expert
+    contrib = torch.empty((t * k, d), dtype=torch.float32, device=x.device)
+    contrib[order] = hout[sorted_e, dest_c].float() * (
+        topw.reshape(-1)[order] * valid)[:, None]
+    contrib = contrib.view(t, k, d)
+    by_expert = torch.argsort(topi, dim=-1, stable=True)      # k distinct experts
+    rows = torch.arange(t, device=x.device)
+    y = contrib[rows, by_expert[:, 0]]
+    for j in range(1, k):
+        y = y + contrib[rows, by_expert[:, j]]
+    y = y.to(x.dtype)
+    if p.shared is not None:
+        y = y + mlp_forward(mlp_kind, p.shared, xf)
+    if p.dense is not None:
+        y = y + mlp_forward(mlp_kind, p.dense, xf)
+
+    me = probs.mean(dim=0)
+    ce = F.one_hot(topi, e).float().sum(dim=1).mean(dim=0)
+    aux = e * torch.sum(me * ce)
+    return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -11,11 +11,14 @@ in place (the JAX package returns a new stacked cache; in place saves the
 second copy), or a Mamba-2 layer's ``{"conv_x", "conv_bc", "ssm"}``, whose
 tensors each forward replaces with the state ``ssm_forward`` returns.
 
-Served here: models whose layers are ("attn", "mlp") or ("ssm", None)
-(Mamba-2) and whose inputs are tokens; trained: the dense decoders. The SSD
+Served here: every architecture of ``configs/``: layers of attention or
+Mamba-2 with a dense MLP, an MoE feed-forward (``layers.MoE``) or none;
+token inputs (``audio``: EnCodec tokens, the reference's stub) or, for
+``vlm``, patch embeddings projected by ``patch_adapter`` and prepended to
+the tokens'. ``forward`` returns the MoE layers' load-balancing loss summed
+over the layers. Trained: the decoders without Mamba-2 layers. The SSD
 scan has no gradient, so a forward that records a graph through a Mamba-2
-layer raises ``NotImplementedError``, as do MoE layers and the VLM and
-audio frontends, which come with later slices of the port.
+layer raises ``NotImplementedError``.
 
 Rematerialisation (``cfg.remat_policy``) wraps each layer of a forward that
 records a graph in ``torch.utils.checkpoint`` (non-reentrant), the
@@ -52,19 +55,17 @@ MOE_AUX_COEF = 0.01
 # the named activations a remat policy or the activation planner may save
 ACT_NAMES = ("mixer_out", "ffn_out", "block_out")
 REMAT_POLICIES = ("none", "block", "dots", "planner")
+FRONTENDS = ("tokens", "audio", "vlm")   # audio: EnCodec tokens (a stub upstream)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve yet."""
-    for _, mlp in cfg.pattern:
-        if mlp not in ("mlp", None):
-            raise NotImplementedError(
-                f"{cfg.name}: the {mlp!r} feed-forward (MoE) comes with a later "
-                "slice of the port")
-    if cfg.frontend != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend comes with a later slice "
-            "of the port")
+    """Raise ``ValueError`` for a mixer, feed-forward or frontend that no
+    model of the JAX package has."""
+    for mixer, mlp in cfg.pattern:
+        if mixer not in ("attn", "ssm") or mlp not in ("mlp", "moe", None):
+            raise ValueError(f"{cfg.name}: unknown layer kind {(mixer, mlp)}")
+    if cfg.frontend not in FRONTENDS:
+        raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r}")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[tuple[str, str | None]]:
@@ -75,10 +76,11 @@ def layer_kinds(cfg: ModelConfig) -> list[tuple[str, str | None]]:
 
 class Block(nn.Module):
     """One layer: norm1, the mixer (attention or Mamba-2), and norm2 with
-    the MLP, or neither where the layer has no MLP (Mamba-2)."""
+    the feed-forward (a dense MLP or an MoE), or neither where the layer has
+    no feed-forward (Mamba-2)."""
 
     def __init__(self, norm1: torch.Tensor, mixer: L.Attention | L.SSM,
-                 norm2: torch.Tensor | None = None, ffn: L.MLP | None = None):
+                 norm2: torch.Tensor | None = None, ffn: L.MLP | L.MoE | None = None):
         super().__init__()
         if (norm2 is None) != (ffn is None):
             raise ValueError("a block has both norm2 and ffn or neither")
@@ -90,22 +92,28 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """The whole model's weights: ``embed`` (vocab_padded, d), the layers,
-    ``final_norm`` and, unless embeddings are tied, ``lm_head``
-    (d, vocab_padded). The module-level functions run it."""
+    ``final_norm``, unless embeddings are tied ``lm_head`` (d, vocab_padded),
+    and for the ``vlm`` frontend ``patch_adapter`` (d, d). The module-level
+    functions run it."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor, layers: list[Block],
-                 final_norm: torch.Tensor, lm_head: torch.Tensor | None):
+                 final_norm: torch.Tensor, lm_head: torch.Tensor | None,
+                 patch_adapter: torch.Tensor | None = None):
         super().__init__()
         check_supported(cfg)
         if len(layers) != cfg.n_layers:
             raise ValueError(f"{cfg.name}: {len(layers)} layers, config has {cfg.n_layers}")
         if (lm_head is None) != cfg.tie_embeddings:
             raise ValueError(f"{cfg.name}: lm_head must be given iff embeddings are untied")
+        if (patch_adapter is None) != (cfg.frontend != "vlm"):
+            raise ValueError(f"{cfg.name}: patch_adapter must be given iff the frontend "
+                             "is vlm")
         self.cfg = cfg
         self.embed = L.weight(embed)
         self.layers = nn.ModuleList(layers)
         self.final_norm = L.weight(final_norm)
         self.lm_head = None if lm_head is None else L.weight(lm_head)
+        self.patch_adapter = None if patch_adapter is None else L.weight(patch_adapter)
 
 
 # ---------------------------------------------------------------------------
@@ -129,11 +137,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     layers = []
     for mixer, mlp in layer_kinds(cfg):
         mix = L.init_attention(cfg, gen) if mixer == "attn" else L.init_ssm(cfg, gen)
-        ffn = () if mlp is None else (ones(), L.init_mlp(cfg, gen))
+        ffn = () if mlp is None else (
+            ones(), L.init_moe(cfg, gen) if mlp == "moe" else L.init_mlp(cfg, gen))
         layers.append(Block(ones(), mix, *ffn))
     lm_head = (None if cfg.tie_embeddings
                else L.normal(gen, (d, cfg.vocab_padded), 1.0 / math.sqrt(d), dt))
-    return Transformer(cfg, embed, layers, ones(), lm_head)
+    adapter = (L.normal(gen, (d, d), 1.0 / math.sqrt(d), dt)
+               if cfg.frontend == "vlm" else None)
+    return Transformer(cfg, embed, layers, ones(), lm_head, adapter)
 
 
 # ---------------------------------------------------------------------------
@@ -142,10 +153,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def embed_inputs(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
                  patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
-    if patch_embeds is not None:
-        raise NotImplementedError("patch embeddings (the VLM frontend) come with a "
-                                  "later slice of the port")
-    return params.embed[tokens]
+    """The token embeddings (b, s, d); for the ``vlm`` frontend with
+    ``patch_embeds`` (b, patches, d), ``patch_embeds @ patch_adapter`` in
+    the model's type prepended (``transformer.py:166``: a prompt carries
+    its patches, decode steps none). Other frontends take no patches."""
+    x = params.embed[tokens]
+    if patch_embeds is None:
+        return x
+    if cfg.frontend != "vlm":
+        raise ValueError(f"{cfg.name}: the {cfg.frontend!r} frontend takes no patch "
+                         "embeddings")
+    return torch.cat([patch_embeds.to(x.dtype) @ params.patch_adapter, x], dim=1)
 
 
 def _mixer_out(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: torch.Tensor,
@@ -163,21 +181,30 @@ def _mixer_out(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: torch
                                cache_pos=cache_pos)
 
 
-def _ffn_out(cfg: ModelConfig, layer: Block, x: torch.Tensor) -> torch.Tensor:
-    return L.mlp_forward(cfg.mlp_kind, layer.ffn,
-                         ops.rmsnorm(x, layer.norm2, eps=cfg.norm_eps))
+def _ffn_out(cfg: ModelConfig, layer: Block, x: torch.Tensor, moe_stats: dict | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The feed-forward on ``rmsnorm(x)`` and its MoE loss (``None`` for a
+    dense MLP)."""
+    h = ops.rmsnorm(x, layer.norm2, eps=cfg.norm_eps)
+    if isinstance(layer.ffn, L.MoE):
+        return L.moe_forward(cfg, layer.ffn, h, cfg.mlp_kind, moe_stats)
+    return L.mlp_forward(cfg.mlp_kind, layer.ffn, h), None
 
 
 def _block(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: torch.Tensor,
-           cache: dict | None = None, cache_pos: int | None = None) -> torch.Tensor:
+           cache: dict | None = None, cache_pos: int | None = None,
+           moe_stats: dict | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One layer: ``x + mixer_out``, then ``+ ffn_out`` where the layer has
-    an MLP (= ``block_out``)."""
+    a feed-forward (= ``block_out``); and the layer's MoE loss or ``None``."""
     x = x + _mixer_out(cfg, layer, x, positions, cache, cache_pos)
-    return x if layer.ffn is None else x + _ffn_out(cfg, layer, x)
+    if layer.ffn is None:
+        return x, None
+    f, aux = _ffn_out(cfg, layer, x, moe_stats)
+    return x + f, aux
 
 
 def _ffn_after(cfg: ModelConfig, layer: Block, x: torch.Tensor,
-               y: torch.Tensor) -> torch.Tensor:
+               y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
     return _ffn_out(cfg, layer, x + y)
 
 
@@ -190,7 +217,7 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 
 def _remat_block(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: torch.Tensor,
-                 save_names: tuple[str, ...]) -> torch.Tensor:
+                 save_names: tuple[str, ...]) -> tuple[torch.Tensor, torch.Tensor | None]:
     """:func:`_block` under ``cfg.remat_policy`` (see the module docstring).
     No region uses random numbers, so none saves the RNG state."""
     policy = cfg.remat_policy
@@ -208,8 +235,9 @@ def _remat_block(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: tor
             return remat(_block, cfg, layer, x, positions)
         y = remat(_mixer_out, cfg, layer, x, positions)
         if layer.ffn is None:
-            return x + y
-        return (x + y) + remat(_ffn_after, cfg, layer, x, y)
+            return x + y, None
+        f, aux = remat(_ffn_after, cfg, layer, x, y)
+        return (x + y) + f, aux
     raise ValueError(f"remat policy {policy!r} not in {REMAT_POLICIES}")
 
 
@@ -221,10 +249,15 @@ def forward(
     cache: list | None = None,       # one entry per layer (make_cache)
     cache_pos: int | None = None,
     save_names: tuple[str, ...] = (),
+    moe_stats: dict | None = None,
 ):
     """Returns ``(logits, moe_aux, cache)``: logits (b, s, vocab_padded)
-    with -1e9 on the padded vocabulary; ``moe_aux`` is 0 (no MoE layers
-    here). Without a cache every attention goes through the flash-attention
+    with -1e9 on the padded vocabulary; ``moe_aux`` (f32) the MoE layers'
+    load-balancing losses summed in layer order (0 without MoE layers), as
+    the reference's scan carries it; ``moe_stats``, where given, gathers
+    the MoE layers' dropped and routed (token, expert) pairs
+    (``layers.moe_forward``) of a forward that records no graph. Without a
+    cache every attention goes through the flash-attention
     forward and every Mamba-2 layer through the SSD scan, and a forward that
     records a graph rematerialises each layer under ``cfg.remat_policy``
     (``save_names``: the planner's choice, for ``planner``); with a cache,
@@ -238,12 +271,15 @@ def forward(
         raise ValueError(f"cache has {len(cache)} layers, model {len(params.layers)}")
 
     remat = cache is None and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(params.layers):
         if remat:
-            x = _remat_block(cfg, layer, x, positions, save_names)
+            x, a = _remat_block(cfg, layer, x, positions, save_names)
         else:
-            x = _block(cfg, layer, x, positions,
-                       None if cache is None else cache[i], cache_pos)
+            x, a = _block(cfg, layer, x, positions,
+                          None if cache is None else cache[i], cache_pos, moe_stats)
+        if a is not None:
+            aux = aux + a
 
     x = ops.rmsnorm(x, params.final_norm, eps=cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
@@ -251,7 +287,6 @@ def forward(
     if cfg.vocab_padded != cfg.vocab_size:
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e9)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, cache
 
 
@@ -262,7 +297,7 @@ def forward(
 def lm_loss(cfg: ModelConfig, params: Transformer, batch: dict,
             save_names: tuple[str, ...] = ()) -> tuple[torch.Tensor, dict]:
     """Mean next-token NLL over labels >= 0, in f32, plus the z-loss
-    ``1e-4·mean(logz²)`` and ``MOE_AUX_COEF·aux / n_layers`` (0 here), as
+    ``1e-4·mean(logz²)`` and ``MOE_AUX_COEF·aux / n_layers``, as
     ``transformer.py:233``. Returns ``(total, {"nll", "zloss", "moe_aux",
     "ntok"})``."""
     logits, aux, _ = forward(cfg, params, batch["tokens"],
@@ -295,18 +330,20 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
-            cache: list, patch_embeds: torch.Tensor | None = None):
-    """Consume a prompt, fill the cache, return last-position logits."""
+            cache: list, patch_embeds: torch.Tensor | None = None,
+            moe_stats: dict | None = None):
+    """Consume a prompt (after its patches, for ``vlm``), fill the cache,
+    return last-position logits."""
     logits, _, cache = forward(cfg, params, tokens, patch_embeds=patch_embeds,
-                               cache=cache, cache_pos=0)
+                               cache=cache, cache_pos=0, moe_stats=moe_stats)
     return logits[:, -1], cache
 
 
 def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
-                cache: list, cache_pos: int):
+                cache: list, cache_pos: int, moe_stats: dict | None = None):
     """One token step. tokens: (b,); cache_pos: the tokens' position."""
     logits, _, cache = forward(cfg, params, tokens[:, None], cache=cache,
-                               cache_pos=cache_pos)
+                               cache_pos=cache_pos, moe_stats=moe_stats)
     return logits[:, 0], cache
 
 

@@ -285,7 +285,14 @@ class _HostWorker:
     """One host's control loop: executes coordinator-issued tasks through
     ``_HostEngine``, drives a one-thread write-behind drain, honors the
     ``FaultPlan``, and drains cooperatively on preemption. Runs as a forked
-    process (``backend="process"``) or an in-process thread."""
+    process (``backend="process"``) or an in-process thread.
+
+    ``resq`` is where its messages go: the coordinator's own queue on the
+    thread backend; on the process backend the write end of a pipe of its
+    own, sent to synchronously under a lock of this process. A forked host
+    that dies mid-send (``os._exit``) thus holds nothing another host
+    waits on: a queue shared by the hosts would leave its writers' shared
+    lock held, and every other host's messages stuck behind it."""
 
     def __init__(self, host_id, ctl, resq, workload, store_args, budget,
                  spec, faults, backend, trace_on):
@@ -302,6 +309,14 @@ class _HostWorker:
         self.dead = threading.Event()  # thread-backend liveness flag
         self.engine: _HostEngine | None = None
         self.ph = PreemptionHandler((signal.SIGTERM,))
+        self._send_lock = threading.Lock()  # the loop and the write-behind thread
+
+    def _send(self, msg: tuple) -> None:
+        if self.backend == "process":
+            with self._send_lock:
+                self.resq.send(msg)
+        else:
+            self.resq.put(msg)
 
     # -- span shipping -------------------------------------------------------
     def _spans(self) -> list:
@@ -361,7 +376,7 @@ class _HostWorker:
             self.dead.set()  # catalog intentionally left populated
             return
         except BaseException:
-            self.resq.put(("error", self.host, traceback.format_exc()))
+            self._send(("error", self.host, traceback.format_exc()))
         finally:
             if not self.dead.is_set():
                 writer.shutdown(wait=True)
@@ -370,9 +385,9 @@ class _HostWorker:
         try:
             with obs_trace.span("write.behind", name):
                 store.write_part_file(name, part_id, table)
-            self.resq.put(("durable", self.host, v, commit, self._spans()))
+            self._send(("durable", self.host, v, commit, self._spans()))
         except Exception:
-            self.resq.put(("error", self.host, traceback.format_exc()))
+            self._send(("error", self.host, traceback.format_exc()))
 
     def _round_launches(self, launches0: dict[str, int]) -> dict[str, int]:
         # a forked host's own launches this round; on the thread backend
@@ -421,7 +436,7 @@ class _HostWorker:
                     # we are gone, then exit 0 for a clean restart
                     for f in pending:
                         f.result()
-                    self.resq.put(("preempted", self.host, self._spans()))
+                    self._send(("preempted", self.host, self._spans()))
                     return
                 a = self._fault("delay", engine.round_idx, tasks_done)
                 if a is not None:
@@ -444,7 +459,7 @@ class _HostWorker:
                 if self._fault("kill", engine.round_idx, tasks_done):
                     self._die()  # mid-round: computed but never reported
                 tasks_done += 1
-                self.resq.put((
+                self._send((
                     "computed", self.host, v, engine.statuses.get(v),
                     engine.schemas.get(node.name), dt, engine.out_commit,
                     engine.out_admitted, engine.out_bg is not None,
@@ -463,7 +478,7 @@ class _HostWorker:
                 for f in pending:
                     f.result()
                 pending.clear()
-                self.resq.put(("round_stats", self.host, dict(
+                self._send(("round_stats", self.host, dict(
                     used_bytes=engine.catalog.used_bytes,
                     peak_bytes=engine.catalog.peak_bytes,
                     hits=rt.stats.hits if rt else 0,
@@ -485,6 +500,17 @@ def _launch_counts() -> dict[str, int]:
 
 def _worker_entry(worker: "_HostWorker") -> None:
     worker.run()
+
+
+def _pump(rx, out: queue_mod.Queue) -> None:
+    """Forward one forked host's messages into the coordinator's queue until
+    the host's end of the pipe closes (it exited or died)."""
+    while True:
+        try:
+            msg = rx.recv()
+        except (EOFError, OSError):
+            return
+        out.put(msg)
 
 
 # ---------------------------------------------------------------------------
@@ -580,6 +606,9 @@ class MultiHostScenarioReport:
 # Coordinator
 # ---------------------------------------------------------------------------
 
+SHUTDOWN_GRACE = 3.0  # seconds a stopped host has to end before SIGTERM
+
+
 class HostPool:
     """Coordinator over H host workers sharing one ``DiskStore`` directory.
 
@@ -637,12 +666,15 @@ class HostPool:
             device=store.device,
         )
         ctx = mp.get_context("fork") if backend == "process" else None
-        self.resq = ctx.Queue() if ctx else queue_mod.Queue()
+        # every host's messages land here: put directly by a thread host,
+        # forwarded from a forked host's own pipe by a pump thread
+        self.resq: queue_mod.Queue = queue_mod.Queue()
         self.hosts: list[dict] = []
         for h in range(self.n_hosts):
             ctl = ctx.Queue() if ctx else queue_mod.Queue()
+            rx, tx = ctx.Pipe(duplex=False) if ctx else (None, self.resq)
             worker = _HostWorker(
-                h, ctl, self.resq, workload, store_args, self.budgets[h],
+                h, ctl, tx, workload, store_args, self.budgets[h],
                 spec, self.fault_plan.for_host(h), backend,
                 obs_trace.enabled(),
             )
@@ -655,23 +687,54 @@ class HostPool:
                     target=_worker_entry, args=(worker,), daemon=True
                 )
             proc.start()
+            if ctx:
+                tx.close()  # the host holds the only write end: EOF when it ends
             self.hosts.append(dict(
-                idx=h, ctl=ctl, proc=proc, worker=worker, alive=True,
+                idx=h, ctl=ctl, rx=rx, proc=proc, worker=worker, alive=True,
                 dead_seen=None,
             ))
+        # the pumps start once every host is forked: no fork copies a thread
+        self._pumps = [
+            threading.Thread(target=_pump, args=(host["rx"], self.resq), daemon=True)
+            for host in self.hosts if ctx
+        ]
+        for t in self._pumps:
+            t.start()
 
     # -- lifecycle -----------------------------------------------------------
     def shutdown(self) -> None:
+        """Stop every host; returns within about ``SHUTDOWN_GRACE`` + 2 seconds.
+
+        Live hosts get a stop message and ``SHUTDOWN_GRACE`` seconds to end. A forked
+        host still running then gets SIGTERM, which only asks it to drain
+        (its handler sets a flag), and a second later SIGKILL; every host is
+        joined. The control queues are closed without waiting for their
+        feeder threads (a dead host's pipe may be full), so nothing is left
+        for the interpreter's exit to join."""
         for host in self.hosts:
             if host["alive"]:
                 try:
                     host["ctl"].put(("stop",))
                 except Exception:
                     pass
+        deadline = time.monotonic() + SHUTDOWN_GRACE
         for host in self.hosts:
-            host["proc"].join(timeout=5.0)
-            if self.backend == "process" and host["proc"].is_alive():
-                host["proc"].terminate()
+            host["proc"].join(timeout=max(0.0, deadline - time.monotonic()))
+        if self.backend != "process":
+            return
+        for end in ("terminate", "kill"):
+            live = [host["proc"] for host in self.hosts if host["proc"].is_alive()]
+            for proc in live:
+                getattr(proc, end)()
+            for proc in live:
+                proc.join(timeout=1.0)
+        for host in self.hosts:
+            host["ctl"].cancel_join_thread()
+            host["ctl"].close()
+        for t in self._pumps:  # every host has ended: each pipe is at EOF
+            t.join(timeout=1.0)
+        for host in self.hosts:
+            host["rx"].close()
 
     def host_catalog_used(self, h: int) -> float:
         """Thread backend only: the host engine's live catalog occupancy

@@ -12,8 +12,9 @@ from ..models import prefill as _prefill
 
 
 def make_prefill_step(cfg: ModelConfig):
-    def prefill_step(params: Transformer, tokens: torch.Tensor, cache: list):
-        return _prefill(cfg, params, tokens, cache)
+    def prefill_step(params: Transformer, tokens: torch.Tensor, cache: list,
+                     patch_embeds: torch.Tensor | None = None):
+        return _prefill(cfg, params, tokens, cache, patch_embeds=patch_embeds)
 
     return prefill_step
 
@@ -27,9 +28,10 @@ def make_decode_step(cfg: ModelConfig):
 
 
 def greedy_generate(cfg: ModelConfig, params: Transformer, prompt: torch.Tensor,
-                    max_new: int, device: str | torch.device | None = None
-                    ) -> torch.Tensor:
-    """Prefill ``prompt`` (b, plen) and decode ``max_new - 1`` more tokens,
+                    max_new: int, device: str | torch.device | None = None,
+                    patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Prefill ``prompt`` (b, plen), after its ``patch_embeds`` (b, patches,
+    d) for the ``vlm`` frontend, and decode ``max_new - 1`` more tokens,
     each the argmax over the real vocabulary; returns the ``max_new`` new
     tokens (b, max_new). Runs on ``device`` (default: the card), where
     ``params`` must lie, under ``torch.inference_mode()``."""
@@ -39,8 +41,11 @@ def greedy_generate(cfg: ModelConfig, params: Transformer, prompt: torch.Tensor,
     with torch.inference_mode():
         prompt = prompt.to(dev)
         b, plen = prompt.shape
+        if patch_embeds is not None:
+            patch_embeds = patch_embeds.to(dev)
+            plen += patch_embeds.shape[1]   # the patches hold the first positions
         cache = make_cache(cfg, b, plen + max_new, dev)
-        logits, cache = _prefill(cfg, params, prompt, cache)
+        logits, cache = _prefill(cfg, params, prompt, cache, patch_embeds=patch_embeds)
         out = [torch.argmax(logits[..., : cfg.vocab_size], dim=-1)]
         for i in range(max_new - 1):
             logits, cache = _decode(cfg, params, out[-1], cache, plen + i)

@@ -4,7 +4,8 @@ exits 0 (their own asserts hold: bitwise-equal stores, a falling loss),
 launches no CUDA kernel (the plain versions run), and says what the
 reference example says where the result is deterministic: quickstart's S/C
 plan summary is the reference's, and the partitioned store is bitwise the
-unpartitioned reference."""
+unpartitioned reference; serve_lm generates for both its models, the audio
+one and the hybrid MoE one."""
 import json
 import os
 import subprocess
@@ -16,7 +17,7 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 EXAMPLES = ("quickstart", "mv_refresh_pipeline", "incremental_refresh",
             "update_delete_refresh", "partitioned_refresh", "traced_refresh",
-            "train_lm")
+            "train_lm", "serve_lm")
 TIMEOUT = 300  # seconds for one example (under 15 s each on a laptop CPU)
 
 
@@ -53,3 +54,6 @@ def test_example_runs_on_cpu(name, tmp_path):
     elif name == "train_lm":
         first, final = out.split("loss: ", 1)[1].split("\n")[0].split(" -> ")
         assert float(final) < float(first)
+    elif name == "serve_lm":
+        for arch in ("musicgen-large", "jamba-v0.1-52b"):
+            assert f"{arch:18s}" in out and "generated (4, 4)" in out

@@ -8,7 +8,9 @@ and RMSNorm kernels), restored afterwards. Weights cross with
 ``convert.params_from_reference``; tokens are made with numpy from a seed.
 Logits agree within 1e-4 (f32 products summed in another order by XLA and
 by torch, over two layers; observed ~3e-6 at magnitudes ~4); greedy tokens
-agree exactly.
+agree exactly. The forward also runs the other architectures, reduced the
+same way: the hybrid and the MoE models (their aux loss within 1e-5), the
+VLM frontend with seeded patch embeddings and the audio one.
 """
 import os
 import subprocess
@@ -68,17 +70,100 @@ def close(got: torch.Tensor, expect, msg=""):
                                err_msg=msg, **LOGIT_TOL)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-12b", "gemma-7b", "llama3-405b"])
+def patch_embeds(cfg, batch=B, seed=4):
+    """Seeded patch embeddings (batch, vlm_patches, d) for the ``vlm``
+    frontend, else None."""
+    if cfg.frontend != "vlm":
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (batch, cfg.vlm_patches, cfg.d_model)).astype(np.float32)
+
+
+def as_jax(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def as_torch(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-12b", "gemma-7b", "llama3-405b",
+                                  "jamba-v0.1-52b", "qwen2-moe-a2.7b", "arctic-480b",
+                                  "llava-next-34b", "musicgen-large"])
 def test_forward_matches_reference(arch, jax_impl):
     """The cache-less forward (the flash-attention path); gemma adds GeGLU,
-    tied embeddings and an explicit head dim, llama3 a padded vocabulary."""
+    tied embeddings and an explicit head dim, llama3 a padded vocabulary;
+    jamba Mamba-2 and attention layers with dense and MoE feed-forwards,
+    qwen2-moe shared experts, arctic a dense residual beside its experts
+    and padded heads (their aux loss too); llava prepends its projected
+    patch embeddings, musicgen reads EnCodec tokens."""
     jc, jparams, tc, tmodel = models(arch)
     tok = tokens(jc, (B, PROMPT + NEW))
-    expect, _, _ = jm.forward(jc, jparams, jnp.asarray(tok))
-    got, aux, cache = tm.forward(tc, tmodel, torch.from_numpy(tok))
-    assert got.shape == (B, PROMPT + NEW, tc.vocab_padded) and cache is None
-    assert float(aux) == 0.0
+    patches = patch_embeds(jc)
+    expect, expect_aux, _ = jm.forward(jc, jparams, jnp.asarray(tok),
+                                       patch_embeds=as_jax(patches))
+    got, aux, cache = tm.forward(tc, tmodel, torch.from_numpy(tok),
+                                 patch_embeds=as_torch(patches))
+    seq = PROMPT + NEW + (0 if patches is None else tc.vlm_patches)
+    assert got.shape == (B, seq, tc.vocab_padded) and cache is None
+    assert (float(aux) > 0.0) == any(mlp == "moe" for _, mlp in tc.pattern)
+    np.testing.assert_allclose(float(aux), float(expect_aux), rtol=1e-5)
     close(got, expect)
+
+
+def test_vlm_prefill_with_patches_matches_reference(jax_impl):
+    """llava's prompt carries its patch embeddings: the prefill step (patches
+    projected by the adapter, then the tokens) and the decode steps after
+    it, whose positions count the patches, against the reference's; and
+    ``greedy_generate(patch_embeds=)``'s tokens."""
+    jc, jparams, tc, tmodel = models("llava-next-34b")
+    patches = patch_embeds(jc)
+    n = jc.vlm_patches
+    tok = tokens(jc, (B, PROMPT + NEW))
+    jcache = jm.make_cache(jc, B, n + PROMPT + NEW)
+    tcache = tm.make_cache(tc, B, n + PROMPT + NEW, device="cpu")
+    expect, jcache = js.make_prefill_step(jc)(jparams, jnp.asarray(tok[:, :PROMPT]), jcache,
+                                              patch_embeds=jnp.asarray(patches))
+    got, tcache = ts.make_prefill_step(tc)(tmodel, torch.from_numpy(tok[:, :PROMPT]), tcache,
+                                           patch_embeds=torch.from_numpy(patches))
+    close(got, expect, "prefill with patches")
+    for t in range(PROMPT, PROMPT + NEW):
+        expect, jcache = jm.decode_step(jc, jparams, jnp.asarray(tok[:, t]), jcache,
+                                        jnp.int32(n + t))
+        got, tcache = tm.decode_step(tc, tmodel, torch.from_numpy(tok[:, t]), tcache, n + t)
+        close(got, expect, f"decode step {t}")
+    # greedy generation after the patches, against the reference's prefill
+    # and decode steps with the argmax fed back
+    jcache = jm.make_cache(jc, B, n + PROMPT + NEW)
+    logits, jcache = jm.prefill(jc, jparams, jnp.asarray(tok[:, :PROMPT]), jcache,
+                                patch_embeds=jnp.asarray(patches))
+    want = [jnp.argmax(logits[..., :jc.vocab_size], axis=-1)]
+    for i in range(NEW - 1):
+        logits, jcache = jm.decode_step(jc, jparams, want[-1], jcache,
+                                        jnp.int32(n + PROMPT + i))
+        want.append(jnp.argmax(logits[..., :jc.vocab_size], axis=-1))
+    got = ts.greedy_generate(tc, tmodel, torch.from_numpy(tok[:, :PROMPT]), NEW, "cpu",
+                             patch_embeds=torch.from_numpy(patches))
+    np.testing.assert_array_equal(got.numpy(), np.stack([np.asarray(w) for w in want], 1))
+    with pytest.raises(ValueError, match="no patch"):
+        _, mc = configs("musicgen-large")
+        music = tm.init_params(mc, torch.Generator().manual_seed(0), device="cpu")
+        tm.forward(mc, music, torch.from_numpy(tokens(mc, (B, PROMPT))),
+                   patch_embeds=torch.zeros(B, 2, mc.d_model))
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "qwen2-moe-a2.7b", "arctic-480b",
+                                  "llava-next-34b", "musicgen-large"])
+def test_count_params_analytic_equals_the_built_model(arch):
+    """The formula counts every tensor the port builds (the MoE router,
+    experts, shared and dense MLPs, the patch adapter), as the reference's
+    formula counts the reference's."""
+    jc, tc = configs(arch)
+    model = tm.init_params(tc, torch.Generator().manual_seed(0), device="cpu")
+    built = sum(p.numel() for p in model.parameters())
+    assert built == tm.count_params_analytic(tc) == jm.count_params_analytic(jc)
+    jparams = jm.init_params(jc, jax.random.PRNGKey(0))
+    assert built == sum(a.size for a in jax.tree.leaves(jparams))
 
 
 def test_prefill_and_decode_match_reference(jax_impl):
@@ -134,14 +219,6 @@ def test_serving_on_cpu_launches_no_kernel():
     ts.greedy_generate(tc, tmodel, torch.zeros(B, PROMPT, dtype=torch.int64), NEW,
                        device="cpu")
     assert ops.launches == dict.fromkeys(ops.KERNELS, 0)
-
-
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "qwen2-moe-a2.7b",
-                                  "arctic-480b", "llava-next-34b", "musicgen-large"])
-def test_unported_layers_and_frontends_raise(arch):
-    cfg = tcfg.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="slice"):
-        tm.init_params(cfg, torch.Generator(), device="cpu")
 
 
 def test_bf16_model_runs_and_keeps_its_dtype():

@@ -3,8 +3,9 @@ the JAX package on the CPU.
 
 ``LoopConfig.log_every``, ``attention_forward(write_cache=)``,
 ``init_mlp(d_ff=)`` and ``make_ssm_cache(dtype=)`` exist in the port with
-the reference's meaning: every parameter (and dataclass field) of the four
-reference signatures is in the port's with the same default; ``init_mlp``
+the reference's meaning: every parameter (and dataclass field) of these
+reference signatures, and of ``init_moe`` and ``moe_forward``, is in the
+port's with the same default; ``init_mlp``
 and ``make_ssm_cache`` give the reference's shapes and dtypes;
 ``write_cache``'s cache (the post-RoPE k and v on the cache-less path, the
 cache written in place on the cache path) lies within the model tolerance
@@ -39,7 +40,8 @@ def configs(arch, **over):
     return jcfg.get_config(arch).reduced(**over), tcfg.get_config(arch).reduced(**over)
 
 
-@pytest.mark.parametrize("name", ["attention_forward", "init_mlp", "make_ssm_cache"])
+@pytest.mark.parametrize("name", ["attention_forward", "init_mlp", "make_ssm_cache",
+                                  "init_moe", "moe_forward"])
 def test_every_reference_parameter_is_in_the_port(name):
     want = inspect.signature(getattr(jl, name)).parameters
     got = inspect.signature(getattr(tl, name)).parameters
