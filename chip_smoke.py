@@ -67,7 +67,13 @@ line):
              a reduced s = chunk = 20 case, the impulse case and one case
              against the exact recurrence, and its final state within 1e-4
              of ||want|| of the plain version's and of the whole-prefix
-             closed form (f64); kernel, plain and library-call
+             closed form (f64); the scan's five gradients through
+             ``SSDScan`` (the kernels forward, the closed-form backward in
+             PyTorch ops) against autograd of the plain version in f32
+             at mamba2's training microbatch (2 x 4096, 80 heads of 64,
+             state 128) and jamba's prefill, bf16 and f32, within the
+             scan's tolerances, the backward timed beside the forward and
+             its working set held within ``WORKSPACE_BYTES``; kernel, plain and library-call
              times from CUDA events, the kernel's and the library call's
              device time alone (``device_ms``: CUPTI under
              ``torch.profiler``), the kernels each library call ran (SDPA's
@@ -190,7 +196,7 @@ line):
              mamba2 card
              against CPU: the same greedy tokens, logits within 1e-4;
 14. train  — the training data (4 shards of 64 x 512 tokens, vocab
-             50304, 4097-token rows) materialized by S/C on the card, then
+             50280, 4097-token rows) materialized by S/C on the card, then
              ``run_training`` of stablelm-3b at full width and depth (32
              layers, d_model 2560, bf16, f32 AdamW moments, remat
              ``block``): 2 steps of 4 rows of 4096 tokens in 2 microbatches;
@@ -200,11 +206,16 @@ line):
              launch on the tensor cores; one more step
              under ``torch.profiler``. Then stablelm-12b at full width
              (d_model 5120, 32 over 8 heads of 160, d_ff 13824, vocab
-             100352) with its depth cut to 8 layers, the same way (its
+             100352) with its depth cut to 4 layers, the same way (its
              final save too), so the wide bf16 dk/dv kernel runs on a
-             training path. Then reduced stablelm-3b with GQA in
-             f32, card against CPU (two train steps agree; the CPU launches
-             no kernel), and a bitwise checkpoint save/restore round trip;
+             training path. Then mamba2-2.7b at full width and depth (64
+             SSD layers, state 128), the same way: the SSD scan's kernels
+             twice a layer (forward and recompute), its backward in PyTorch
+             ops, no flash; the profiled step also gives the SSD backward's
+             device time by op and its share of the step. Then reduced
+             stablelm-3b with GQA and reduced mamba2 in f32, card against
+             CPU (two train steps agree; the CPU launches no kernel), and
+             a bitwise checkpoint save/restore round trip;
 15. a JSON line listing every kernel and variant with its launches over
    every path (the multi-host path's also alone: ``multihost_launches``),
    its times (event windows and device alone), its bound and
@@ -403,20 +414,36 @@ BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 # in another order stay near 1e-6.
 REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # The training path: stablelm-3b at full width and depth, train_4k's 4096
-# positions, 4 rows a step in 2 microbatches of 2, for 2 steps.
+# positions, 4 rows a step in 2 microbatches of 2, for 2 steps. The data's
+# token ids lie below 50280, mamba2-2.7b's vocabulary (held by stablelm-3b's
+# 50304 and 12b's 100352): an id in a padded vocabulary's tail would meet a
+# logit of -1e9.
 TRAIN_ARCH = "stablelm-3b"
 TRAIN_SEQ, TRAIN_ROWS, TRAIN_MICRO, TRAIN_STEPS = 4096, 4, 2, 2
-TRAIN_DATA = dict(n_shards=4, docs_per_shard=64, doc_len=512, vocab_size=50304,
+TRAIN_DATA = dict(n_shards=4, docs_per_shard=64, doc_len=512, vocab_size=50280,
                   seq_len=TRAIN_SEQ + 1)
 TRAIN_SHAPE = (2, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 80, True)  # one microbatch's attention
 # Then stablelm-12b at full width (d_model 5120, 32/8 heads of 160, d_ff
-# 13824, vocab 100352), its depth cut from 40 to 8 layers so that bf16
-# weights and gradients and f32 AdamW moments (~39 GB) fit beside the
-# activations: the path of the wide bf16 dk/dv kernel. The same rows, steps
-# and data (token ids below 50304, which its vocabulary holds).
-WIDE_TRAIN_ARCH, WIDE_TRAIN_LAYERS = "stablelm-12b", 8
+# 13824, vocab 100352), its depth cut from 40 to 4 layers (8 until the
+# Mamba-2 training run joined the phase; 4 keeps the script inside its time
+# limit): the path of the wide bf16 dk/dv kernel. The same rows, steps and
+# data.
+WIDE_TRAIN_ARCH, WIDE_TRAIN_LAYERS = "stablelm-12b", 4
 WIDE_TRAIN_SHAPE = (2, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 160, True)
 GEMMA_TRAIN_SHAPE = (2, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 256, True)   # gemma-7b's heads
+# Then mamba2-2.7b at full width and depth (64 SSD layers), the same rows,
+# steps and data: the SSD scan's forward kernels under remat and its
+# closed-form backward in PyTorch ops (kernels.ssd_scan.SSDScan).
+MAMBA_TRAIN_ARCH = "mamba2-2.7b"
+# SSDScan's gradients held on the card at mamba2-2.7b's training
+# microbatch (2, 4096, 80, 64, 128) and jamba's prefill (4, 512, 128, 64,
+# 16), (b, s, h, p, n).
+SSD_GRAD_SHAPES = ((TRAIN_MICRO, TRAIN_SEQ, 80, 64, 128), (4, 512, 128, 64, 16))
+# The SSD backward's case and the training step whose profiles are also
+# summed through key_averages, beside the raw events
+SSD_SUM_CASE = f"{TRAIN_MICRO}x{TRAIN_SEQ}x80x64x128_L64_bfloat16"
+SUM_TRAIN_ARCH = "stablelm-3b"
+SMALL_MAMBA_SEQ = 129     # reduced mamba2 card vs CPU: two chunks of 64
 # Card against CPU on reduced stablelm-3b, f32 on both sides, sums in
 # another order (tests/test_torch_train.py's tolerances): one microbatch's
 # gradients before any update within 1e-5 + 1e-4·|g|; after two steps
@@ -622,7 +649,9 @@ def device_ms(torch, fn, samples: int = 21, batch: int = 10) -> float:
 
 def device_profile(torch, fn, samples: int = 21, batch: int = 10) -> tuple[float, dict]:
     """:func:`device_ms` and the names of what the calls ran on the card,
-    each with its device ms per call."""
+    each with its device ms per call. Every ``fn`` given runs work on the
+    card, so a profile that recorded no device event (seen once, on one
+    of a run's sessions) is taken again, up to three times in all."""
     fn()
     torch.cuda.synchronize()
     calls = samples * batch
@@ -631,7 +660,12 @@ def device_profile(torch, fn, samples: int = 21, batch: int = 10) -> tuple[float
         for _ in range(calls):
             fn()
 
-    _, by_name, _ = device_kernel_times(torch, run)
+    for _ in range(3):
+        _, by_name, _ = device_kernel_times(torch, run)
+        if by_name:
+            break
+    else:
+        raise AssertionError("device_profile: three profiles recorded no device event")
     per_call = {name: us / calls / 1e3 for name, (us, _) in by_name.items()}
     return sum(per_call.values()), per_call
 
@@ -1191,6 +1225,7 @@ def model_kernel_phase(torch, dev, bw):
     log_bwd_pairs(rows)
     bwd_wrapper(torch, dev)
     flash_pair(torch, dev)
+    ssd_grads(torch, dev, bw)
     return rows
 
 
@@ -1211,6 +1246,114 @@ def log_bwd_pairs(rows) -> None:
             f"dk/dv {dkv['device_ms']} = {ours} ms device, bound "
             f"{dq['bound_ms'] + dkv['bound_ms']} ms; library backward {lib} ms device"
             + (f" ({ours / lib:.2f}x)" if lib else ""))
+
+
+def ssd_bwd_ops(b, s, h, p, n, chunk) -> int:
+    """Operations of ``ssd_scan_bwd`` (its products, f32 FMAs): per
+    (batch, head, chunk of L), 2Lpn for each of the recomputed chunk state,
+    C·Hᵀ, dH, dC's state term, dS·B and dB's state term, and 2L²p for each
+    of dM = dy·(x·dt)ᵀ and Mᵀ·dy; per (batch, chunk) 2L²n for each of C·Bᵀ,
+    dC's and dB's intra-chunk terms. Elementwise passes not counted."""
+    L = chunk
+    per = b * h * (s // L)
+    return per * (6 * 2 * L * p * n + 2 * 2 * L * L * p) + b * (s // L) * 3 * 2 * L * L * n
+
+
+def ssd_grads(torch, dev, bw) -> None:
+    """``SSDScan``'s forward (``y`` and the final state, the scan kernels)
+    and its five gradients (the closed-form backward in PyTorch ops) on the
+    card against the plain version (``ref.ssd_scan_chunked``) and
+    ``torch.autograd`` of it in f32 on the same values, at
+    ``SSD_GRAD_SHAPES`` in bf16 and f32, B and C the halves of one (b, s,
+    2n) tensor, within ``SSD_TOL`` and ``REL_TOL``. Then the backward alone
+    (``ssd_scan_bwd``) timed beside the forward kernel at the same inputs
+    (CUDA events and CUPTI device ms; PyTorch ops, not a kernel), its
+    working set beyond its inputs and gradients held within
+    ``WORKSPACE_BYTES``, and beside the backward it replaces: the plain
+    forward recomputed under grad and ``torch.autograd`` through it, timed
+    and its working set read the same way."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as mod
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for b, s, h, p, n in SSD_GRAD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            case = f"{b}x{s}x{h}x{p}x{n}_L64_{dn}"
+            x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+            dt = (F.softplus(torch.randn((b, s, h), generator=gen, device=dev)) * 0.1).to(dtype)
+            a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.5)
+            bc = (torch.randn((b, s, 2 * n), generator=gen, device=dev) / n**0.5).to(dtype)
+            dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+            leaves = [t.clone().requires_grad_(True) for t in (x, dt, a, bc)]
+            y, h_final = mod.ssd_scan(leaves[0], leaves[1], leaves[2], leaves[3][..., :n],
+                                      leaves[3][..., n:], return_state=True)
+            got = [g.float() for g in torch.autograd.grad(y, leaves, dy)]
+            plain = [t.detach().float().requires_grad_(True) for t in (x, dt, a, bc)]
+            yp, hp_final = ref.ssd_scan_chunked(plain[0], plain[1], plain[2],
+                                                plain[3][..., :n], plain[3][..., n:],
+                                                return_state=True)
+            want = list(torch.autograd.grad(yp, plain, dy.float()))
+            torch.cuda.synchronize()
+            # the forward: the plain version's y rounded to the inputs' type,
+            # as the plain version gives it on them
+            f_err, f_rel, f_rms = hold(torch, f"ssd_scan/{case}", [y.detach(), h_final],
+                                       [yp.detach().to(dtype), hp_final.detach()], SSD_TOL[dn],
+                                       REL_TOL[dn])
+            del y, h_final, yp, hp_final, leaves, plain
+            err, rel, rms = hold(torch, f"ssd_scan backward/{case}", got, want, SSD_TOL[dn],
+                                 REL_TOL[dn])
+            del got, want
+            bm, cm = bc[..., :n], bc[..., n:]
+            args = (x, dt, a, bm, cm)
+
+            def recompute():
+                """The plain forward under grad and autograd through it."""
+                with torch.enable_grad():
+                    ins = [t.detach().requires_grad_(True) for t in (x, dt, a, bc)]
+                    yq = ref.ssd_scan_chunked(ins[0], ins[1], ins[2], ins[3][..., :n],
+                                              ins[3][..., n:])
+                    return torch.autograd.grad(yq, ins, dy)
+
+            def working_set(fn):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                grads = fn()
+                torch.cuda.synchronize()
+                return torch.cuda.max_memory_allocated() - base - sum(g.nbytes for g in grads)
+
+            work = working_set(lambda: mod.ssd_scan_bwd(*args, dy))
+            if work > mod.WORKSPACE_BYTES:
+                raise AssertionError(f"ssd_scan_bwd/{case}: working set {work} B beyond "
+                                     f"WORKSPACE_BYTES {mod.WORKSPACE_BYTES}")
+            re_work = working_set(recompute)
+            timing = dict(samples=5, batch=2)
+            fwd_ms = time_ms(torch, lambda: mod.ssd_scan(*args), **timing)
+            fwd_dev = device_ms(torch, lambda: mod.ssd_scan(*args), **timing)
+            bwd_ms = time_ms(torch, lambda: mod.ssd_scan_bwd(*args, dy), **timing)
+            bwd_dev = device_ms(torch, lambda: mod.ssd_scan_bwd(*args, dy), **timing)
+            re_ms = time_ms(torch, recompute, **timing)
+            re_dev = device_ms(torch, recompute, **timing)
+            if case == SSD_SUM_CASE:
+                device_kernel_times(torch, lambda: mod.ssd_scan_bwd(*args, dy),
+                                    sums=f"ssd_scan_bwd {case}")
+            nbytes = 2 * (sum(t.nbytes for t in args) + dy.nbytes)  # read, gradients written
+            n_ops = ssd_bwd_ops(b, s, h, p, n, 64)
+            bound = max(nbytes / bw, n_ops / PEAK_FLOPS) * 1e3
+            log(f"kernel ssd_scan forward (SSDScan, return_state) {case}: y and the final "
+                f"state within {SSD_TOL[dn]} of the plain version, max_abs_err={f_err} "
+                f"rel_err={f_rel} (limit {REL_TOL[dn]}, RMS |plain| {f_rms})")
+            log(f"kernel ssd_scan backward (SSDScan: kernel forward, PyTorch-ops backward) "
+                f"{case}: dx, ddt, da, dB, dC within {SSD_TOL[dn]} of torch.autograd of the "
+                f"plain version in f32, max_abs_err={err} rel_err={rel} (limit "
+                f"{REL_TOL[dn]}, RMS |plain| {rms}); backward (PyTorch ops, not a kernel) "
+                f"ms={bwd_ms} device_ms={bwd_dev} bound_ms={bound} ({n_ops} f32 ops, "
+                f"{nbytes} B), working set {work} B (limit {mod.WORKSPACE_BYTES}); forward "
+                f"kernel ms={fwd_ms} device_ms={fwd_dev}; plain forward recomputed + "
+                f"torch.autograd ms={re_ms} device_ms={re_dev} working set {re_work} B")
+            del x, dt, a, bc, dy, args, bm, cm
 
 
 def hold_final_state(torch, case, inputs, got, plain):
@@ -1888,24 +2031,33 @@ def moe_phase(torch, np, dev):
 
 def predicted_train_launches(cfg, steps, n_micro) -> dict:
     """Launches of one ``run_training`` under remat ``block``, per
-    microbatch: every layer's flash forward runs once in the forward and
-    once in its checkpoint region's recompute, each backward kernel once;
-    RMSNorm twice per layer and once at the final norm in the forward, and
-    again twice per layer in the recompute (the final norm lies outside the
-    regions). The backward of RMSNorm is PyTorch ops: no launch. Every
-    flash launch takes the variant the config's dtype and head dim call for
-    (bf16: the tensor cores)."""
+    microbatch, from the layers ``models.layer_kinds`` gives: every layer's
+    forward runs once, and again in its checkpoint region's recompute (the
+    final norm lies outside the regions and runs once). A layer's RMSNorms
+    are its block norm, its feed-forward's norm where it has a feed-forward
+    and, for Mamba-2, the mixer's gated norm; an attention layer launches
+    the flash forward in each pass and each flash backward kernel once; a
+    Mamba-2 layer the SSD scan in each pass. The backwards of RMSNorm and
+    of the SSD scan are PyTorch ops: no launch. Every flash launch takes
+    the variant the config's dtype and head dim call for (bf16: the tensor
+    cores)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import layer_kinds
 
-    n, layers = steps * n_micro, cfg.n_layers
-    counts = {"rmsnorm": n * (2 * layers + 1 + 2 * layers), "rmsnorm/residual": 0, "rmsnorm/scalar": 0,
-              "flash_fwd": n * 2 * layers, "flash_bwd_dq": n * layers,
-              "flash_bwd_dkv": n * layers, "ssd_scan": 0, **dict.fromkeys(FLASH_VARIANTS, 0)}
+    kinds = layer_kinds(cfg)
+    norms = sum(1 + (mlp is not None) + (mixer == "ssm") for mixer, mlp in kinds)
+    attn = sum(mixer == "attn" for mixer, _ in kinds)
+    ssm = len(kinds) - attn
+    n = steps * n_micro
+    counts = {"rmsnorm": n * (2 * norms + 1), "rmsnorm/residual": 0, "rmsnorm/scalar": 0,
+              "flash_fwd": n * 2 * attn, "flash_bwd_dq": n * attn,
+              "flash_bwd_dkv": n * attn, "ssd_scan": n * 2 * ssm,
+              **dict.fromkeys(FLASH_VARIANTS, 0)}
     dtype = getattr(torch, cfg.dtype)
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        counts[f"{kernel}/{fa.variant(kernel, dtype, cfg.head_dim_)}"] = counts[kernel]
+        counts[f"{kernel}/{fa.variant(kernel, dtype, cfg.head_dim_)}"] += counts[kernel]
     return counts
 
 
@@ -1913,12 +2065,16 @@ def train_run(torch, dev, root, dcfg, cfg) -> dict:
     """``run_training`` of ``cfg`` on the card (``TRAIN_STEPS`` steps of
     ``TRAIN_ROWS`` rows in microbatches of ``cfg.microbatch_size``, its final
     write-behind save under ``root / "ckpt"``, removed after), then one more
-    step under ``torch.profiler``. Raises unless the launches are those
+    step under ``torch.profiler`` (for a model with Mamba-2 layers, the SSD
+    backward's share of it from one call's device time by op,
+    :func:`ssd_bwd_by_op`).
+    Raises unless the launches are those
     :func:`predicted_train_launches` gives, the losses and gradient norms are
     finite and, for bf16, every flash launch ran on the tensor cores (checked
     last, after the numbers are logged). Returns the launch counts."""
     from repro_torch.data import BatchIterator
     from repro_torch.kernels import ops
+    from repro_torch.models.transformer import layer_kinds
     from repro_torch.train import AdamWConfig, make_train_step
     from repro_torch.train.loop import LoopConfig, run_training
 
@@ -1951,10 +2107,12 @@ def train_run(torch, dev, root, dcfg, cfg) -> dict:
         t.nbytes for key in ("m", "v") for t in state["opt"][key].values())
     ckpt_bytes = sum(f.stat().st_size for f in (root / "ckpt").rglob("*") if f.is_file())
     tokens = TRAIN_ROWS * TRAIN_SEQ
-    log(f"train: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} heads "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.head_dim_} d_ff {cfg.d_ff} vocab "
-        f"{cfg.vocab_size} {cfg.dtype}, moments {cfg.opt_state_dtype}, remat "
-        f"{cfg.remat_policy}: {n_params} parameters, state {state_bytes} B")
+    mixer = (f"SSD d_inner {cfg.ssm_d_inner} as {cfg.ssm_heads} heads of "
+             f"{cfg.ssm_head_dim}, state {cfg.ssm_state}" if cfg.has_mixer("ssm") else
+             f"heads {cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.head_dim_}")
+    log(f"train: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} {mixer} d_ff "
+        f"{cfg.d_ff} vocab {cfg.vocab_size} {cfg.dtype}, moments {cfg.opt_state_dtype}, "
+        f"remat {cfg.remat_policy}: {n_params} parameters, state {state_bytes} B")
     for m, secs in zip(metrics, res["step_seconds"]):
         log(f"train: {cfg.name} step {m['step']} loss {m['loss']} grad_norm {m['grad_norm']} "
             f"lr {m['lr']} seconds {secs:.4f} tokens/s {tokens / secs:.1f}")
@@ -1970,16 +2128,31 @@ def train_run(torch, dev, root, dcfg, cfg) -> dict:
     it = BatchIterator(root / "data", dcfg, TRAIN_ROWS, device=dev)
     batch = it.next_batch()
     step_fn = make_train_step(cfg, AdamWConfig(), global_rows=TRAIN_ROWS)
-    wall, by_name, _ = device_kernel_times(torch, lambda: step_fn(state, batch))
+    wall, by_name, _ = device_kernel_times(
+        torch, lambda: step_fn(state, batch),
+        sums=f"{cfg.name} train step" if cfg.name == SUM_TRAIN_ARCH else None)
     log_breakdown(f"{cfg.name} train step ({TRAIN_ROWS} x {TRAIN_SEQ} tokens)", wall, by_name,
                   phase="train")
-    flash = {name: us for name, (us, _) in by_name.items() if "flash_" in name}
-    log(f"train: {cfg.name} profiled step: flash kernels {sum(flash.values()) / 1e3:.4f} ms "
-        "device time: " + "; ".join(f"{us / 1e3:.4f} ms {name[:60]}"
-                                    for name, us in sorted(flash.items(), key=lambda kv: -kv[1])))
+    if cfg.has_mixer("ssm"):
+        # one SSD backward a Mamba-2 layer and microbatch, each at the same
+        # shapes: one call's device time by op, times the calls, against
+        # the step's device time
+        calls = n_micro * sum(m == "ssm" for m, _ in layer_kinds(cfg))
+        per_call, by_op = ssd_bwd_by_op(torch, dev, cfg, TRAIN_ROWS // n_micro, TRAIN_SEQ)
+        busy = sum(us for us, _ in by_name.values()) / 1e3
+        log(f"train: {cfg.name} profiled step: SSD backward (PyTorch ops) {calls} calls x "
+            f"{per_call:.4f} ms device = {calls * per_call:.3f} ms of {busy:.3f} ms device "
+            f"time, share {calls * per_call / busy:.4f}; by op (device ms a call): " + "; ".join(
+                f"{name} {ms:.4f}" for name, ms in by_op.most_common(12) if ms > 0))
+    if cfg.has_mixer("attn"):
+        flash = {name: us for name, (us, _) in by_name.items() if "flash_" in name}
+        log(f"train: {cfg.name} profiled step: flash kernels {sum(flash.values()) / 1e3:.4f} "
+            "ms device time: " + "; ".join(
+                f"{us / 1e3:.4f} ms {name[:60]}"
+                for name, us in sorted(flash.items(), key=lambda kv: -kv[1])))
     del state, step_fn, batch
     torch.cuda.empty_cache()
-    if cfg.dtype == "bfloat16" and not all(
+    if cfg.has_mixer("attn") and cfg.dtype == "bfloat16" and not all(
             launches[f"{k}/mma"] == launches[k] > 0
             for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
         raise AssertionError(f"{cfg.name}: bf16 flash launches not all on the tensor cores: "
@@ -1987,20 +2160,132 @@ def train_run(torch, dev, root, dcfg, cfg) -> dict:
     return launches
 
 
+def ssd_bwd_by_op(torch, dev, cfg, rows, seq) -> tuple[float, dict]:
+    """One ``ssd_scan_bwd`` call at a training microbatch's shapes of
+    ``cfg``'s Mamba-2 layers (``rows`` x ``seq``, in its dtype; random
+    inputs: the call's work depends on the shapes alone) under
+    ``torch.profiler`` with host and device activity: its device ms, and
+    that time split by the PyTorch op that launched each kernel (the op's
+    own kernels, summed by name over the call's ops)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ssd_scan as mod
+
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    dtype = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x, dy = (torch.randn((rows, seq, h, p), generator=gen, device=dev).to(dtype)
+             for _ in range(2))
+    dt = (torch.nn.functional.softplus(torch.randn((rows, seq, h), generator=gen, device=dev))
+          * 0.1).to(dtype)
+    bc = (torch.randn((rows, seq, 2 * n), generator=gen, device=dev) / n**0.5).to(dtype)
+    args = (x, dt, -torch.rand((h,), generator=gen, device=dev), bc[..., :n], bc[..., n:], dy)
+    mod.ssd_scan_bwd(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("ssd_scan_bwd"):
+            mod.ssd_scan_bwd(*args)
+        torch.cuda.synchronize()
+    events = prof.events()
+    (call,) = [e for e in events if e.name == "ssd_scan_bwd" and e.device_type == DeviceType.CPU]
+    by_op = collections.Counter()
+
+    def walk(e):
+        for ch in e.cpu_children:
+            by_op[ch.name] += ch.self_device_time_total / 1e3
+            walk(ch)
+
+    walk(call)
+    return call.device_time_total / 1e3, by_op
+
+
+def train_card_vs_cpu(torch, np, dev, scfg, seq_len, kernels, label) -> dict:
+    """The reduced f32 model ``scfg`` on the card against the CPU, from the
+    same weights: one microbatch's gradients before any update, then 2
+    AdamW steps of 4 rows of ``seq_len`` in 2 microbatches, within
+    ``SMALL_TRAIN_TOL``; the card must launch each of ``kernels`` and the
+    CPU none. Returns the card's train state."""
+    import copy
+
+    from repro_torch import models
+    from repro_torch.kernels import ops
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    cpu_model = models.init_params(scfg, torch.Generator().manual_seed(3), "cpu")
+    places = {"cpu": torch.device("cpu"), "card": dev}
+    states = {"cpu": init_train_state(scfg, cpu_model),
+              "card": init_train_state(scfg, copy.deepcopy(cpu_model).to(dev))}
+    rng = np.random.default_rng(8)
+    seqs = [torch.from_numpy(rng.integers(0, scfg.vocab_size, (4, seq_len)).astype(np.int32))
+            for _ in range(2)]
+
+    def first_grads(where):
+        mb = {"tokens": seqs[0][:2, :-1].to(places[where]),
+              "labels": seqs[0][:2, 1:].to(places[where])}
+        model = states[where]["params"]
+        loss, _ = models.lm_loss(scfg, model, mb)
+        return [g.cpu() for g in torch.autograd.grad(loss, list(model.parameters()))]
+
+    for g_card, g_cpu in zip(first_grads("card"), first_grads("cpu")):
+        if not bool(torch.isclose(g_card, g_cpu, rtol=SMALL_TRAIN_TOL["grad_rtol"],
+                                  atol=SMALL_TRAIN_TOL["grad_atol"]).all()):
+            raise AssertionError(f"{label}: card vs CPU gradients differ by up to "
+                                 f"{float((g_card - g_cpu).abs().max())}")
+    runs = {}
+    for where, st in states.items():
+        step_fn = make_train_step(scfg, AdamWConfig(**SMALL_TRAIN_OPT), global_rows=4)
+        ops.reset_launches()
+        mets = []
+        for s_ in seqs:
+            b_ = {"tokens": s_[:, :-1].to(places[where]),
+                  "labels": s_[:, 1:].to(places[where])}
+            st, m = step_fn(st, b_)
+            mets.append({k: float(v) for k, v in m.items()})
+        states[where] = st
+        runs[where] = (mets, dict(ops.launches))
+    if any(runs["cpu"][1].values()) or not all(runs["card"][1][k] for k in kernels):
+        raise AssertionError(f"{label} launches: CPU {runs['cpu'][1]}, card {runs['card'][1]}")
+    for mc, mg in zip(runs["cpu"][0], runs["card"][0]):
+        for key in ("loss", "grad_norm"):
+            if not math.isclose(mg[key], mc[key], rel_tol=SMALL_TRAIN_TOL["loss"]):
+                raise AssertionError(f"{label}: card vs CPU {key}: {mg[key]} vs {mc[key]}")
+    cpu_p = dict(states["cpu"]["params"].named_parameters())
+    diff = torch.cat([(p.detach().cpu() - cpu_p[n].detach()).abs().reshape(-1)
+                      for n, p in states["card"]["params"].named_parameters()])
+    worst = {"params": float(diff.max()),
+             "params_share": float((diff > SMALL_TRAIN_TOL["params_close"]).float().mean())}
+    for key in ("m", "v"):
+        worst[key] = max(float((t.cpu() - states["cpu"]["opt"][key][n]).abs().max())
+                         for n, t in states["card"]["opt"][key].items())
+    if worst["params"] > SMALL_TRAIN_TOL["params_max"] or any(
+            worst[k] > SMALL_TRAIN_TOL[k] for k in ("params_share", "m", "v")):
+        raise AssertionError(f"{label}: card vs CPU state differs: {worst} (tolerance "
+                             f"{SMALL_TRAIN_TOL})")
+    log(f"train: {label} card vs CPU: first-microbatch gradients within "
+        f"{SMALL_TRAIN_TOL['grad_atol']} + {SMALL_TRAIN_TOL['grad_rtol']}·|g|; 2 steps of 2 "
+        f"microbatches of {seq_len - 1} tokens: losses {[m['loss'] for m in runs['card'][0]]} "
+        f"vs {[m['loss'] for m in runs['cpu'][0]]}, grad norms within "
+        f"{SMALL_TRAIN_TOL['loss']} relative; worst abs diff {worst}; card launches "
+        f"{runs['card'][1]}, CPU none; {time.perf_counter() - t0:.3f}s")
+    return states["card"]
+
+
 def train_phase(torch, np, dev, root):
     """Materialize the training data by S/C on the card, run stablelm-3b at
-    full width and depth and stablelm-12b at full width with
-    ``WIDE_TRAIN_LAYERS`` layers through :func:`train_run`, then reduced GQA
-    card against CPU and a checkpoint round trip. Returns the launch counts
-    of the two ``run_training`` runs, summed."""
-    import copy
+    full width and depth, stablelm-12b at full width with
+    ``WIDE_TRAIN_LAYERS`` layers and mamba2-2.7b at full width and depth
+    through :func:`train_run`, then reduced GQA stablelm-3b and reduced
+    mamba2 card against CPU (:func:`train_card_vs_cpu`) and a checkpoint
+    round trip. Returns the launch counts of the three ``run_training``
+    runs, summed."""
     import dataclasses as dc
 
     from repro_torch import configs, models
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data import DataConfig, materialize_dataset
-    from repro_torch.kernels import ops
-    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.train import init_train_state
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2023,78 +2308,29 @@ def train_phase(torch, np, dev, root):
         f"{rep.peak_catalog_bytes:.0f} B within budget {dcfg.catalog_budget_bytes:.0f} B; "
         f"{time.perf_counter() - t0:.3f}s")
 
-    # -- stablelm-3b at full width and depth, then stablelm-12b at full width
-    # with its depth cut, each through run_training
-    cfg = dc.replace(configs.get_config(TRAIN_ARCH), microbatch_size=TRAIN_MICRO)
-    launches = train_run(torch, dev, root, dcfg, cfg)
-    wide = dc.replace(configs.get_config(WIDE_TRAIN_ARCH), n_layers=WIDE_TRAIN_LAYERS,
-                      microbatch_size=TRAIN_MICRO)
-    wide_launches = train_run(torch, dev, root, dcfg, wide)
-    launches = {k: launches[k] + wide_launches[k] for k in launches}
+    # -- stablelm-3b at full width and depth, stablelm-12b at full width with
+    # its depth cut, mamba2-2.7b at full width and depth, each through
+    # run_training
+    runs = [configs.get_config(TRAIN_ARCH),
+            dc.replace(configs.get_config(WIDE_TRAIN_ARCH), n_layers=WIDE_TRAIN_LAYERS),
+            configs.get_config(MAMBA_TRAIN_ARCH)]
+    counts = [train_run(torch, dev, root, dcfg, dc.replace(cfg, microbatch_size=TRAIN_MICRO))
+              for cfg in runs]
+    launches = {k: sum(c[k] for c in counts) for k in counts[0]}
 
-    # -- card against CPU: reduced stablelm-3b with GQA, f32
-    t0 = time.perf_counter()
+    # -- card against CPU: reduced stablelm-3b with GQA and reduced mamba2, f32
     scfg = configs.get_config(TRAIN_ARCH).reduced(dtype="float32", n_heads=8, n_kv_heads=2)
-    cpu_model = models.init_params(scfg, torch.Generator().manual_seed(3), "cpu")
-    places = {"cpu": torch.device("cpu"), "card": dev}
-    states = {"cpu": init_train_state(scfg, cpu_model),
-              "card": init_train_state(scfg, copy.deepcopy(cpu_model).to(dev))}
-    rng = np.random.default_rng(8)
-    seqs = [torch.from_numpy(rng.integers(0, scfg.vocab_size, (4, 65)).astype(np.int32))
-            for _ in range(2)]
-
-    def first_grads(where):
-        mb = {"tokens": seqs[0][:2, :-1].to(places[where]),
-              "labels": seqs[0][:2, 1:].to(places[where])}
-        model = states[where]["params"]
-        loss, _ = models.lm_loss(scfg, model, mb)
-        return [g.cpu() for g in torch.autograd.grad(loss, list(model.parameters()))]
-
-    for g_card, g_cpu in zip(first_grads("card"), first_grads("cpu")):
-        if not bool(torch.isclose(g_card, g_cpu, rtol=SMALL_TRAIN_TOL["grad_rtol"],
-                                  atol=SMALL_TRAIN_TOL["grad_atol"]).all()):
-            raise AssertionError(f"card vs CPU gradients differ by up to "
-                                 f"{float((g_card - g_cpu).abs().max())}")
-    runs = {}
-    for where, st in states.items():
-        step_fn = make_train_step(scfg, AdamWConfig(**SMALL_TRAIN_OPT), global_rows=4)
-        ops.reset_launches()
-        mets = []
-        for s_ in seqs:
-            b_ = {"tokens": s_[:, :-1].to(places[where]),
-                  "labels": s_[:, 1:].to(places[where])}
-            st, m = step_fn(st, b_)
-            mets.append({k: float(v) for k, v in m.items()})
-        states[where] = st
-        runs[where] = (mets, dict(ops.launches))
-    if any(runs["cpu"][1].values()) or not all(
-            runs["card"][1][k] for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
-        raise AssertionError(f"launches: CPU {runs['cpu'][1]}, card {runs['card'][1]}")
-    for mc, mg in zip(runs["cpu"][0], runs["card"][0]):
-        for key in ("loss", "grad_norm"):
-            if not math.isclose(mg[key], mc[key], rel_tol=SMALL_TRAIN_TOL["loss"]):
-                raise AssertionError(f"card vs CPU {key}: {mg[key]} vs {mc[key]}")
-    cpu_p = dict(states["cpu"]["params"].named_parameters())
-    diff = torch.cat([(p.detach().cpu() - cpu_p[n].detach()).abs().reshape(-1)
-                      for n, p in states["card"]["params"].named_parameters()])
-    worst = {"params": float(diff.max()),
-             "params_share": float((diff > SMALL_TRAIN_TOL["params_close"]).float().mean())}
-    for key in ("m", "v"):
-        worst[key] = max(float((t.cpu() - states["cpu"]["opt"][key][n]).abs().max())
-                         for n, t in states["card"]["opt"][key].items())
-    if worst["params"] > SMALL_TRAIN_TOL["params_max"] or any(
-            worst[k] > SMALL_TRAIN_TOL[k] for k in ("params_share", "m", "v")):
-        raise AssertionError(f"card vs CPU state differs: {worst} (tolerance {SMALL_TRAIN_TOL})")
-    log(f"train: reduced {TRAIN_ARCH} (GQA 8/2, f32) card vs CPU: first-microbatch "
-        f"gradients within {SMALL_TRAIN_TOL['grad_atol']} + {SMALL_TRAIN_TOL['grad_rtol']}"
-        f"·|g|; 2 steps of 2 microbatches: losses {[m['loss'] for m in runs['card'][0]]} vs "
-        f"{[m['loss'] for m in runs['cpu'][0]]}, grad norms within "
-        f"{SMALL_TRAIN_TOL['loss']} relative; worst abs diff {worst}; card launches "
-        f"{runs['card'][1]}, CPU none; {time.perf_counter() - t0:.3f}s")
+    state = train_card_vs_cpu(torch, np, dev, scfg, 65,
+                              ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                              f"reduced {TRAIN_ARCH} (GQA 8/2, f32)")
+    train_card_vs_cpu(torch, np, dev,
+                      configs.get_config(MAMBA_TRAIN_ARCH).reduced(dtype="float32"),
+                      SMALL_MAMBA_SEQ, ("rmsnorm", "ssd_scan"),
+                      f"reduced {MAMBA_TRAIN_ARCH} (f32)")
 
     # -- a checkpoint round trip of the card state, bitwise
     mgr = CheckpointManager(root / "small_ckpt")
-    saved = {"train": states["card"], "data": {"epoch": 1, "cursor": 8, "seed": 0}}
+    saved = {"train": state, "data": {"epoch": 1, "cursor": 8, "seed": 0}}
     mgr.save(saved, 2, blocking=True)
     template = {"train": init_train_state(scfg, models.init_params(
                     scfg, torch.Generator(device=dev).manual_seed(9), dev)),
@@ -2205,10 +2441,17 @@ def refresh_round(torch, core, mv, root, bytes_per_root, budget, device):
                 variants=dict(dp.variant_launches), probe_shapes=shapes)
 
 
-def device_kernel_times(torch, fn):
+def device_kernel_times(torch, fn, sums: str | None = None):
     """Run ``fn`` under ``torch.profiler`` (device activity only): its wall
     seconds (host clock, synchronised), ``{kernel name: (device us,
-    count)}`` and what ``fn`` returned."""
+    count)}`` and what ``fn`` returned. The device events are summed by
+    name straight from the profiler's raw results: ``key_averages`` gives
+    the same sums but first builds an event tree in Python, ~13 s for
+    100,000 kernels on the card's host against ~1 s here (a Mamba-2
+    training step launches about that many). With ``sums``, a label, it
+    also logs the total through ``key_averages`` (every event's self
+    device time) beside the raw one."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2218,10 +2461,16 @@ def device_kernel_times(torch, fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
-    for e in prof.key_averages():
-        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-        if us > 0:
-            by_name[e.key] = (us, e.count)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            us, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
+    if sums is not None:
+        raw = sum(us for us, _ in by_name.values())
+        averaged = sum(float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+                       for e in prof.key_averages())
+        log(f"profiler sums {sums}: {sum(c for _, c in by_name.values())} device events, "
+            f"raw {raw:.3f} us, key_averages {averaged:.3f} us, ratio {raw / averaged:.6f}")
     return wall, by_name, result
 
 

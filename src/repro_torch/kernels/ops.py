@@ -8,8 +8,9 @@ raises). There is no ``impl`` argument. ``rmsnorm`` and
 ``torch.autograd.Function`` (the flash backward kernels; RMSNorm's
 closed-form gradient); under ``torch.inference_mode()`` they launch exactly
 their forward kernel. ``ssd_scan`` is ``kernels.ssd_scan.ssd_scan``
-itself: it has no gradient (nor has the reference's) and refuses inputs
-that would record a graph.
+itself: differentiable through ``SSDScan`` (the scan kernels forward, the
+chunked scan's closed-form gradient in PyTorch ops backward) when an input
+requires grad under grad mode, else exactly one forward launch.
 ``launches`` counts each kernel's launches (``variant_launches`` the
 residual RMSNorm's share); the wrappers bump it where they launch and
 nowhere else.

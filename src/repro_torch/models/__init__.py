@@ -1,6 +1,6 @@
 """Config-driven decoder LM on PyTorch (serving of every architecture of
 ``configs/``: dense, MoE, Mamba-2, the hybrid, the VLM and audio frontends;
-training of the decoders without Mamba-2 layers)."""
+and their training)."""
 from . import layers
 from .transformer import (
     ACT_NAMES,

@@ -16,9 +16,8 @@ Mamba-2 with a dense MLP, an MoE feed-forward (``layers.MoE``) or none;
 token inputs (``audio``: EnCodec tokens, the reference's stub) or, for
 ``vlm``, patch embeddings projected by ``patch_adapter`` and prepended to
 the tokens'. ``forward`` returns the MoE layers' load-balancing loss summed
-over the layers. Trained: the decoders without Mamba-2 layers. The SSD
-scan has no gradient, so a forward that records a graph through a Mamba-2
-layer raises ``NotImplementedError``.
+over the layers. Trained: every architecture; a Mamba-2 layer's SSD scan
+takes its gradient from ``kernels.ssd_scan.SSDScan``.
 
 Rematerialisation (``cfg.remat_policy``) wraps each layer of a forward that
 records a graph in ``torch.utils.checkpoint`` (non-reentrant), the

@@ -896,8 +896,33 @@ def test_ssd_scan_wrapper_raises_instead_of_falling_back(dev):
         ssd_scan(x, dt, a, bc[..., ::2], cm)
     with pytest.raises(TypeError):
         ssd_scan(x.half(), dt.half(), a, bm.half(), cm.half())
-    with pytest.raises(NotImplementedError):
-        ssd_scan(x.requires_grad_(True), dt, a, bm, cm)
+    with pytest.raises(ValueError, match="device"):   # under grad too
+        ssd_scan(x.requires_grad_(True), dt, a.cpu(), bm, cm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_gradients_match_cpu(dev, dtype):
+    """Under grad the scan is the autograd Function: one forward launch,
+    none in the backward (PyTorch ops); the five gradients, B and C through
+    the halves of one tensor, within the scan's tolerances of the CPU's
+    (the plain forward and the same backward), and 1e-4 / 1e-2 of
+    ||want||."""
+    b, s, h, p, n, chunk = 2, 192, 4, 16, 32, 64
+    x, dt, a, bc = ssd_inputs(b, s, h, p, n, dtype)
+    dy = torch.from_numpy(np.random.default_rng(9).standard_normal((b, s, h, p))
+                          .astype(np.float32)).to(dtype)
+    grads = {}
+    for where in ("cpu", dev):
+        leaves = [t.to(where).requires_grad_(True) for t in (x, dt, a, bc)]
+        ops.reset_launches()
+        y = ssd_scan(*leaves[:3], leaves[3][..., :n], leaves[3][..., n:], chunk=chunk)
+        grads[str(where)] = torch.autograd.grad(y, leaves, dy.to(where))
+        assert ops.launches["ssd_scan"] == (0 if where == "cpu" else 1)
+    for w, g in zip(grads["cpu"], grads[str(dev)]):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        close((w,), (g,), SSD_TOL[dtype])
+        rel = float((g.cpu().float() - w.float()).norm() / w.float().norm())
+        assert rel <= SSD_REL_TOL[dtype], rel
 
 
 def test_small_mamba_serving_card_equals_cpu(dev):

@@ -29,12 +29,16 @@ import repro.serve as js
 from repro import configs as jcfg
 from repro.kernels import dispatch
 from repro.models import layers as jl
+from repro.train import optimizer as jopt
+from repro.train import step as jstep
 from repro_torch import configs as tcfg
 from repro_torch import convert
 from repro_torch import models as tm
 from repro_torch import serve as ts
 from repro_torch.kernels import ops
 from repro_torch.models import layers as tl
+from repro_torch.train import optimizer as topt
+from repro_torch.train import step as tstep
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -242,22 +246,129 @@ def test_serving_on_cpu_launches_no_kernel():
     assert ops.launches == dict.fromkeys(ops.KERNELS, 0)
 
 
-def test_loss_under_grad_raises_not_implemented():
-    """Mamba-2 training comes with a later slice: a forward that records a
-    graph through the SSD scan is refused (a ctypes launch would give no
-    gradient), under every remat policy."""
-    _, tc = configs()
-    tok = torch.from_numpy(tokens(tc, (B, PROMPT + 1)))
-    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
-    for policy in ("none", "block", "dots", "planner"):
-        cfg = dataclasses.replace(tc, remat_policy=policy)
-        model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-        model.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="gradient"):
-            tm.lm_loss(cfg, model, batch)
-        with torch.no_grad():
-            loss, _ = tm.lm_loss(cfg, model, batch)
-        assert torch.isfinite(loss)
+# ---------------------------------------------------------------------------
+# training: the SSD scan's gradient through the model (tests/test_torch_train.py
+# for the dense decoders)
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ = 128   # two chunks of 64: the state passes between them
+GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
+LOSS_TOL = dict(rtol=1e-5, atol=0.0)
+STATE_TOL = {"params": dict(atol=2e-4, rtol=0.0), "m": dict(atol=2e-6, rtol=0.0),
+             "v": dict(atol=2e-8, rtol=0.0)}
+OPT = dict(lr=1e-2, warmup_steps=2)
+
+
+@pytest.fixture
+def xla_dispatch():
+    """The JAX package differentiates only its XLA dispatch (its Pallas
+    scan and RMSNorm have no gradient)."""
+    prev = dispatch.set_kernel_impl("xla")
+    try:
+        yield
+    finally:
+        dispatch.set_kernel_impl(prev)
+
+
+def train_batch(cfg, rows=B, seed=1):
+    """tokens and labels (rows, TRAIN_SEQ) int32, the first row's first
+    labels masked (-1), for both packages."""
+    seqs = tokens(cfg, (rows, TRAIN_SEQ + 1), seed)
+    tok, lab = seqs[:, :-1].astype(np.int32), seqs[:, 1:].astype(np.int32)
+    lab[0, :3] = -1
+    return ({"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab)},
+            {"tokens": torch.from_numpy(tok), "labels": torch.from_numpy(lab)})
+
+
+def close_named(cfg, jtree, tnamed, tol, what):
+    want = convert.named_reference_arrays(cfg, jax.tree.map(np.asarray, jtree))
+    assert set(want) == set(tnamed), what
+    for k, w in want.items():
+        np.testing.assert_allclose(tnamed[k].detach().numpy(), w, err_msg=f"{what} {k}", **tol)
+
+
+def close_state(cfg, jstate, tstate, jmet, tmet, what=""):
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(tmet[key]), float(jmet[key]), err_msg=f"{what} {key}",
+                                   **LOSS_TOL)
+    close_named(cfg, jstate["params"], dict(tstate["params"].named_parameters()),
+                STATE_TOL["params"], f"{what} params")
+    for key in ("m", "v"):
+        close_named(cfg, jstate["opt"][key], tstate["opt"][key], STATE_TOL[key], f"{what} {key}")
+    assert int(jstate["opt"]["step"]) == int(tstate["opt"]["step"])
+
+
+@pytest.mark.parametrize("policy", ["none", "block", "dots", "planner"])
+def test_lm_loss_and_gradients_match_reference(xla_dispatch, policy):
+    """The loss and every parameter's gradient against ``jax.value_and_grad``
+    of the reference's ``lm_loss``, under each remat policy (``planner``
+    cutting at ``mixer_out``); no kernel launches on the CPU."""
+    jc, jparams, tc, _ = models()
+    tc = dataclasses.replace(tc, remat_policy=policy)
+    model = convert.params_from_reference(tc, jax.tree.map(np.asarray, jparams), "cpu")
+    model.requires_grad_(True)
+    jb, tb = train_batch(jc)
+    (jloss, jaux), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm.lm_loss(jc, p, jb), has_aux=True))(jparams)
+    ops.reset_launches()
+    tloss, taux = tm.lm_loss(tc, model, tb, save_names=("mixer_out",))
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss), **LOSS_TOL)
+    for key in ("nll", "zloss", "ntok"):
+        np.testing.assert_allclose(float(taux[key].detach()), float(jaux[key]), **LOSS_TOL)
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(tloss, list(model.parameters()))
+    assert ops.launches == dict.fromkeys(ops.KERNELS, 0)
+    close_named(tc, jgrads, dict(zip(names, grads)), GRAD_TOL, "grad")
+
+
+@pytest.mark.parametrize("microbatch", [B, B // 2], ids=["n_micro1", "n_micro2"])
+def test_train_steps_match_reference(xla_dispatch, microbatch):
+    """Two AdamW steps of one or two microbatches: loss, gradient norm,
+    parameters and moments against ``repro.train.step``."""
+    jc, jparams, tc, _ = models(microbatch_size=microbatch)
+    jstate = jstep.init_train_state(jc, jparams)
+    tstate = tstep.init_train_state(
+        tc, convert.params_from_reference(tc, jax.tree.map(np.asarray, jparams), "cpu"))
+    jfn = jax.jit(jstep.make_train_step(jc, jopt.AdamWConfig(**OPT), global_rows=B))
+    tfn = tstep.make_train_step(tc, topt.AdamWConfig(**OPT), global_rows=B)
+    assert tstep._num_microbatches(tc, B) == B // microbatch
+    for i, seed in enumerate((1, 2)):
+        jb, tb = train_batch(jc, seed=seed)
+        jstate, jmet = jfn(jstate, jb)
+        tstate, tmet = tfn(tstate, tb)
+        close_state(tc, jstate, tstate, jmet, tmet, f"step {i + 1}")
+
+
+def test_train_state_from_reference_continues_a_jax_run(xla_dispatch):
+    """One step in JAX, the SSM model's parameters and moments carried
+    across bit for bit, one more step on both."""
+    jc, tc = configs()
+    jstate = jstep.init_train_state(jc, jm.init_params(jc, jax.random.PRNGKey(4)))
+    jfn = jax.jit(jstep.make_train_step(jc, jopt.AdamWConfig(**OPT), global_rows=B))
+    jstate, _ = jfn(jstate, train_batch(jc, seed=5)[0])
+    tstate = convert.train_state_from_reference(tc, jax.tree.map(np.asarray, jstate), "cpu")
+    assert all(p.requires_grad for p in tstate["params"].parameters())
+    assert any(".mixer.a_log" in k for k in tstate["opt"]["m"])
+    for key in ("m", "v"):
+        want = convert.named_reference_arrays(tc, jax.tree.map(np.asarray, jstate["opt"][key]))
+        for k, w in want.items():
+            assert tstate["opt"][key][k].numpy().tobytes() == w.tobytes(), (key, k)
+    jb, tb = train_batch(jc, seed=6)
+    jstate, jmet = jfn(jstate, jb)
+    tstate, tmet = tstep.make_train_step(tc, topt.AdamWConfig(**OPT), global_rows=B)(tstate, tb)
+    close_state(tc, jstate, tstate, jmet, tmet)
+    assert int(tstate["opt"]["step"]) == 2
+
+
+def test_train_cli_runs_on_cpu(tmp_path):
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH, "--reduced",
+         "--device", "cpu", "--steps", "2", "--batch-size", "2", "--seq-len", "65",
+         "--ckpt-dir", str(tmp_path / "ck"), "--data-dir", str(tmp_path / "d")],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "final loss" in res.stdout and "device=cpu" in res.stdout
 
 
 def test_serve_cli_runs_on_cpu():

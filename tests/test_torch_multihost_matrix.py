@@ -28,8 +28,13 @@ def check_matrix_cell(seed, n_hosts, spec_key):
             pmv.FaultAction("kill", host=n_hosts - 1, round_idx=1,
                             after_tasks=1),
         ))
+    # Speculation off: under CPU load the straggler detector can flag a
+    # live host and re-dispatch its tasks, which this cell's assertion that
+    # every re-dispatch comes from the killed host does not allow.
+    # Speculation keeps its own tests in test_torch_multihost_faults.py.
     rep, store = run_mh(seed, spec_key, n_hosts, backend="thread",
-                        fault_plan=fp)
+                        fault_plan=fp,
+                        straggler=pmv.StragglerConfig(speculate=False))
     assert_matches_reference(store, seed, spec_key)
     assert_no_catalog_leak(rep)
     if n_hosts > 1:

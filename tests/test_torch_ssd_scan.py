@@ -12,6 +12,7 @@ Inputs are made with numpy from a seed; bf16 inputs are the same f32 values
 rounded to nearest even by each framework, so both packages see the same
 bits.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,12 +138,20 @@ def test_refuses_mixed_and_unsupported_dtypes():
 
 
 @pytest.mark.parametrize("which", range(5))
-def test_refuses_inputs_that_record_a_graph(which):
-    """No gradient: a graph through the scan would be silently wrong on the
-    card, so it is refused on either device; without grad mode it runs."""
-    args = list(map(torch.from_numpy, inputs(1, 32, 2, 8, 8)))
+def test_each_input_takes_its_gradient(which):
+    """With only one input requiring grad, the scan records a graph and
+    that input's gradient is ``jax.vjp``'s of the reference's chunked scan
+    within 2e-4 (``tests/test_torch_ssd_grad.py`` holds all five at once);
+    without grad mode it records nothing and gives the same output."""
+    arrays = inputs(1, 64, 2, 8, 8)
+    dy = np.random.default_rng(3).standard_normal((1, 64, 2, 8)).astype(np.float32)
+    jargs, args = both(arrays, "float32")
+    _, vjp = jax.vjp(lambda *xs: jref.ssd_scan_chunked(*xs, chunk=32), *jargs)
+    want = vjp(jnp.asarray(dy))[which]
     args[which].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="gradient"):
-        ssd_scan(*args)
+    y = ssd_scan(*args, chunk=32)
+    (got,) = torch.autograd.grad(y, [args[which]], torch.from_numpy(dy))
+    close(got, want, "float32")
     with torch.no_grad():
-        assert ssd_scan(*args).shape == (1, 32, 2, 8)
+        y0 = ssd_scan(*args, chunk=32)
+    assert y0.grad_fn is None and torch.equal(y0, y.detach())
