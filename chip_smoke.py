@@ -11,8 +11,11 @@ mqo, examples, serve, moe, mamba and train, and prints no kernels or result
 line):
 
 1. card    — the card's name and power limit (``nvidia-smi``);
-2. build   — ``nvcc`` for every CUDA source of the port, all in parallel,
-             logging ``ptxas -v`` (registers, spills; each instantiation of
+2. build   — ``nvcc`` for every CUDA source of the port, all in parallel
+             (the f32 and bf16 flash sources as five and three translation
+             units, ``native.PARTS``), each source's and unit's seconds
+             logged, and
+             ``ptxas -v`` (registers, spills; each instantiation of
              the flash kernels by name); the SASS of the tensor-core
              forward, dq and dk/dv kernels (dk/dv also at head dims 160
              and 256) must hold bf16 HMMA in their main loops, and dk/dv at
@@ -50,7 +53,8 @@ line):
              serving shape (GQA), a ragged non-causal, a causal sq != sk
              and a keyless case, and in bf16 the wide heads' training
              shapes (stablelm-12b: b 2, 32 over 8 heads of 160; gemma-7b:
-             16 over 16 heads of 256; 4096 positions, causal) and, in
+             16 over 16 heads of 256; qwen2-moe-a2.7b: 16 over 16 heads of
+             128; 4096 positions, causal) and, in
              bf16, the examples path's shapes (``train_lm``: RMSNorm on
              256 rows of 128, the forward and both backward kernels at b
              2, 4 over 4 heads of 32, 128 positions, causal); RMSNorm at
@@ -106,7 +110,8 @@ line):
              (``--multihost-child``) whose coordinator touches CUDA only
              after the pool forked its hosts, so the four hosts compute on
              the card, each with its own context. Both stores bitwise equal
-             to the P = 8 store; B loses host 1 and re-dispatches only from
+             to the P = 8 store (one pass after both runs: each oracle table
+             read once); B loses host 1 and re-dispatches only from
              it, A nothing; every surviving host's catalog empty at each
              round's end and within its budget at its peak; the hosts'
              shipped launches must hold filter_gt, map_derived,
@@ -212,10 +217,27 @@ line):
              SSD layers, state 128), the same way: the SSD scan's kernels
              twice a layer (forward and recompute), its backward in PyTorch
              ops, no flash; the profiled step also gives the SSD backward's
-             device time by op and its share of the step. Then reduced
-             stablelm-3b with GQA and reduced mamba2 in f32, card against
-             CPU (two train steps agree; the CPU launches no kernel), and
-             a bitwise checkpoint save/restore round trip;
+             device time by op and its share of the step. Then
+             qwen2-moe-a2.7b at full width (60 experts top-4 of 1408 and 4
+             shared, 16/16 heads of 128, vocab 151936) with its depth cut
+             to 4 layers (2,904,541,184 parameters), the same way: the MoE
+             layer's routing, dispatch and expert ``bmm`` under grad,
+             launches as predicted with every flash launch on the tensor
+             cores, and the profiled step split into the experts' ``bmm``,
+             the routing and dispatch ops, the other GEMMs and flash. One
+             full-width MoE layer's forward and backward on a training
+             microbatch twice: every gradient bitwise equal (and the
+             earlier dispatch's gather, ``xf[token_of]``, its backward
+             twice, logged). Then reduced stablelm-3b with GQA, reduced
+             mamba2, reduced qwen2-moe and reduced jamba (one pattern of 8
+             layers) in f32, card against CPU (two train steps agree; the
+             CPU launches no kernel; the MoE models' top-k sets compared
+             token by token); reduced qwen2-moe's gradients under remat
+             ``block`` bitwise those under ``none`` on the card;
+             ``ef_compress_tree`` on the card bitwise the CPU's on reduced
+             stablelm-3b's card gradients, and 2 compressed train steps on
+             the card; a bitwise checkpoint save/restore round trip of the
+             plain and the compressed states (its errors too);
 15. a JSON line listing every kernel and variant with its launches over
    every path (the multi-host path's also alone: ``multihost_launches``),
    its times (event windows and device alone), its bound and
@@ -227,6 +249,7 @@ sources are not beside this script.
 from __future__ import annotations
 
 import collections
+import concurrent.futures as cf
 import contextlib
 import dataclasses
 import json
@@ -443,7 +466,27 @@ SSD_GRAD_SHAPES = ((TRAIN_MICRO, TRAIN_SEQ, 80, 64, 128), (4, 512, 128, 64, 16))
 # summed through key_averages, beside the raw events
 SSD_SUM_CASE = f"{TRAIN_MICRO}x{TRAIN_SEQ}x80x64x128_L64_bfloat16"
 SUM_TRAIN_ARCH = "stablelm-3b"
+# Then qwen2-moe-a2.7b at full width (d_model 2048, 16/16 heads of 128, 60
+# experts top-4 of width 1408 and 4 shared, vocab 151936), its depth cut
+# from 24 to 4 layers (2,904,541,184 parameters; 24 layers' 14.3B do not
+# train on one card): the MoE layer's routing, dispatch and expert products
+# under grad, and the bf16 flash kernels at head dim 128. The same rows,
+# steps and data.
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen2-moe-a2.7b", 4
+MOE_TRAIN_SHAPE = (2, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 128, True)
+# The profiled MoE step's device time by the PyTorch op that launched it:
+# the routing and the dispatch (sort, searchsorted, top-k, the index ops)
+ROUTING_OPS = ("aten::sort", "aten::searchsorted", "aten::topk", "aten::index",
+               "aten::index_put_", "aten::_index_put_impl_", "aten::index_select",
+               "aten::gather", "aten::scatter", "aten::scatter_add_", "aten::one_hot",
+               "aten::where", "aten::_softmax", "aten::_softmax_backward_data")
+GEMM_OPS = ("aten::mm", "aten::addmm")
 SMALL_MAMBA_SEQ = 129     # reduced mamba2 card vs CPU: two chunks of 64
+# Reduced jamba card vs CPU: one pattern (7 Mamba-2, 1 attention, 4 MoE),
+# 128 tokens (two scan chunks) a row, each step held from the CPU state
+# before it (train_card_vs_cpu(per_step=True)): on its own updates the
+# card swaps some tokens' experts in step 2 (4 tokens on an H100).
+SMALL_JAMBA_LAYERS = 8
 # Card against CPU on reduced stablelm-3b, f32 on both sides, sums in
 # another order (tests/test_torch_train.py's tolerances): one microbatch's
 # gradients before any update within 1e-5 + 1e-4·|g|; after two steps
@@ -1026,7 +1069,7 @@ def model_kernel_cases(torch, dev):
         ]
         if dtype == torch.bfloat16:   # the wide heads' training shapes (dk/dv above
             # 128) and the train_lm example's
-            shapes += [WIDE_TRAIN_SHAPE, GEMMA_TRAIN_SHAPE, TRAIN_LM_SHAPE]
+            shapes += [WIDE_TRAIN_SHAPE, GEMMA_TRAIN_SHAPE, TRAIN_LM_SHAPE, MOE_TRAIN_SHAPE]
         # the MoE and hybrid oracles' cache-less forwards: the forward alone
         fwd_only = [MOE_ORACLE_SHAPE, JAMBA_ORACLE_SHAPE] if dtype == torch.float32 else []
         for b, hq, hkv, sq, sk, d, causal in shapes + fwd_only:
@@ -2150,6 +2193,8 @@ def train_run(torch, dev, root, dcfg, cfg) -> dict:
             "ms device time: " + "; ".join(
                 f"{us / 1e3:.4f} ms {name[:60]}"
                 for name, us in sorted(flash.items(), key=lambda kv: -kv[1])))
+    if any(mlp == "moe" for _, mlp in layer_kinds(cfg)):
+        moe_step_split(torch, cfg, lambda: step_fn(state, batch), by_name, wall)
     del state, step_fn, batch
     torch.cuda.empty_cache()
     if cfg.has_mixer("attn") and cfg.dtype == "bfloat16" and not all(
@@ -2158,6 +2203,38 @@ def train_run(torch, dev, root, dcfg, cfg) -> dict:
         raise AssertionError(f"{cfg.name}: bf16 flash launches not all on the tensor cores: "
                              f"{launches}")
     return launches
+
+
+def moe_step_split(torch, cfg, fn, by_name, wall) -> None:
+    """One more step of an MoE model (``fn``) under ``torch.profiler`` with
+    host activity: its kernels' device ms by the PyTorch op that launched
+    them (each op's own kernels, not its children's), logged as the
+    experts' ``bmm``, the routing and dispatch ops (``ROUTING_OPS``), the
+    other GEMMs and the flash kernels (launched through ctypes, under no
+    op: from the device-only profile ``by_name`` of the step before, whose
+    host wall is ``wall`` s), beside that step's device busy time and
+    share, and the top ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_op = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.self_device_time_total > 0:
+            by_op[e.name] += e.self_device_time_total / 1e3
+    busy = sum(us for us, _ in by_name.values()) / 1e3
+    split = {"experts' bmm": by_op["aten::bmm"],
+             "routing and dispatch": sum(by_op[o] for o in ROUTING_OPS),
+             "other GEMMs (mm, addmm)": sum(by_op[o] for o in GEMM_OPS),
+             "flash": sum(us for name, (us, _) in by_name.items() if "flash_" in name) / 1e3}
+    log(f"train: {cfg.name} profiled step split (device ms, share of the step's "
+        f"{busy:.3f} ms device busy; busy share {busy / (wall * 1e3):.4f} of its "
+        f"{wall:.4f} s wall): " + "; ".join(f"{k} {ms:.3f} ({ms / busy:.4f})"
+                                             for k, ms in split.items()))
+    log(f"train: {cfg.name} profiled step, device ms by op: " + "; ".join(
+        f"{name} {ms:.3f}" for name, ms in by_op.most_common(14)))
 
 
 def ssd_bwd_by_op(torch, dev, cfg, rows, seq) -> tuple[float, dict]:
@@ -2200,16 +2277,51 @@ def ssd_bwd_by_op(torch, dev, cfg, rows, seq) -> tuple[float, dict]:
     return call.device_time_total / 1e3, by_op
 
 
-def train_card_vs_cpu(torch, np, dev, scfg, seq_len, kernels, label) -> dict:
+@contextlib.contextmanager
+def recording_topk(torch, layers, calls: list):
+    """While open, each ``layers.moe_forward`` call first appends its
+    tokens' top-k expert ids (ascending, on the CPU) to ``calls``, routed
+    as ``moe_forward`` routes them (f32 router logits, padded experts
+    masked, softmax, ``topk``)."""
+    original = layers.moe_forward
+
+    def recorded(cfg, p, x, *args, **kwargs):
+        with torch.no_grad():
+            logits = x.reshape(-1, x.shape[-1]).float() @ p.router
+            e = cfg.moe_experts_padded
+            if e > cfg.moe_experts:
+                logits = logits.masked_fill(
+                    torch.arange(e, device=x.device) >= cfg.moe_experts, -1e9)
+            topi = torch.topk(torch.softmax(logits, dim=-1), cfg.moe_top_k, dim=-1)[1]
+            calls.append(torch.sort(topi, dim=-1)[0].cpu())
+        return original(cfg, p, x, *args, **kwargs)
+
+    layers.moe_forward = recorded
+    try:
+        yield calls
+    finally:
+        layers.moe_forward = original
+
+
+def train_card_vs_cpu(torch, np, dev, scfg, seq_len, kernels, label, per_step=False):
     """The reduced f32 model ``scfg`` on the card against the CPU, from the
     same weights: one microbatch's gradients before any update, then 2
     AdamW steps of 4 rows of ``seq_len`` in 2 microbatches, within
     ``SMALL_TRAIN_TOL``; the card must launch each of ``kernels`` and the
-    CPU none. Returns the card's train state."""
+    CPU none. For a model with MoE layers, logs how many tokens' top-k
+    expert sets differ between card and CPU in that first microbatch. With
+    ``per_step``, the card's own two steps are logged (losses, gradient
+    norms and the tokens whose top-k set differs, by step) and the steps
+    held are the card's from the CPU's state before each, copied over bit
+    for bit: where Adam turns a near-zero gradient's last bits into a step
+    of up to twice the learning rate, a router moved so can swap a token's
+    experts, a discrete change no tolerance covers. Returns the card's
+    train state and its first-microbatch gradients (CPU copies, by name)."""
     import copy
 
     from repro_torch import models
     from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
     t0 = time.perf_counter()
@@ -2221,30 +2333,65 @@ def train_card_vs_cpu(torch, np, dev, scfg, seq_len, kernels, label) -> dict:
     seqs = [torch.from_numpy(rng.integers(0, scfg.vocab_size, (4, seq_len)).astype(np.int32))
             for _ in range(2)]
 
+    routed = {"card": [], "cpu": []}
+
     def first_grads(where):
         mb = {"tokens": seqs[0][:2, :-1].to(places[where]),
               "labels": seqs[0][:2, 1:].to(places[where])}
         model = states[where]["params"]
-        loss, _ = models.lm_loss(scfg, model, mb)
+        with recording_topk(torch, L, routed[where]):
+            loss, _ = models.lm_loss(scfg, model, mb)
         return [g.cpu() for g in torch.autograd.grad(loss, list(model.parameters()))]
 
-    for g_card, g_cpu in zip(first_grads("card"), first_grads("cpu")):
+    card_grads = first_grads("card")
+    for g_card, g_cpu in zip(card_grads, first_grads("cpu")):
         if not bool(torch.isclose(g_card, g_cpu, rtol=SMALL_TRAIN_TOL["grad_rtol"],
                                   atol=SMALL_TRAIN_TOL["grad_atol"]).all()):
             raise AssertionError(f"{label}: card vs CPU gradients differ by up to "
                                  f"{float((g_card - g_cpu).abs().max())}")
-    runs = {}
-    for where, st in states.items():
+    if routed["card"]:
+        differ = [int((a != b).any(dim=-1).sum()) for a, b in zip(routed["card"], routed["cpu"])]
+        log(f"train: {label} first microbatch: {len(differ)} MoE layers' forwards of "
+            f"{routed['card'][0].shape[0]} tokens; tokens whose top-"
+            f"{scfg.moe_top_k} expert set differs card vs CPU: {differ} (sum {sum(differ)})")
+    runs, before = {}, []
+    for where, st in states.items():   # the CPU first
         step_fn = make_train_step(scfg, AdamWConfig(**SMALL_TRAIN_OPT), global_rows=4)
         ops.reset_launches()
-        mets = []
+        mets, calls = [], []
         for s_ in seqs:
+            if where == "cpu":
+                before.append(copy.deepcopy(st))
             b_ = {"tokens": s_[:, :-1].to(places[where]),
                   "labels": s_[:, 1:].to(places[where])}
-            st, m = step_fn(st, b_)
+            calls.append([])
+            with recording_topk(torch, L, calls[-1]) if per_step else contextlib.nullcontext():
+                st, m = step_fn(st, b_)
             mets.append({k: float(v) for k, v in m.items()})
         states[where] = st
-        runs[where] = (mets, dict(ops.launches))
+        runs[where] = (mets, dict(ops.launches), calls)
+    if per_step:
+        # the card's own two steps, logged; then each step on the card from
+        # the CPU's state before it, held below
+        swaps = [sum(int((a != b).any(dim=-1).sum()) for a, b in zip(c, p))
+                 for c, p in zip(runs["card"][2], runs["cpu"][2])]
+        log(f"train: {label} card vs CPU, each side on its own updates: losses "
+            f"{[m['loss'] for m in runs['card'][0]]} vs {[m['loss'] for m in runs['cpu'][0]]}, "
+            f"grad norms {[m['grad_norm'] for m in runs['card'][0]]} vs "
+            f"{[m['grad_norm'] for m in runs['cpu'][0]]}; tokens whose top-{scfg.moe_top_k} "
+            f"set differs, by step: {swaps}")
+        step_fn = make_train_step(scfg, AdamWConfig(**SMALL_TRAIN_OPT), global_rows=4)
+        mets = []
+        for s_, st in zip(seqs, before):
+            card_model = copy.deepcopy(st["params"]).to(dev).requires_grad_(True)
+            st = {"params": card_model,
+                  "opt": {"m": {k: t.to(dev) for k, t in st["opt"]["m"].items()},
+                          "v": {k: t.to(dev) for k, t in st["opt"]["v"].items()},
+                          "step": st["opt"]["step"].to(dev)}}
+            st, m = step_fn(st, {"tokens": s_[:, :-1].to(dev), "labels": s_[:, 1:].to(dev)})
+            mets.append({k: float(v) for k, v in m.items()})
+        states["card"] = st
+        runs["card"] = (mets, *runs["card"][1:])
     if any(runs["cpu"][1].values()) or not all(runs["card"][1][k] for k in kernels):
         raise AssertionError(f"{label} launches: CPU {runs['cpu'][1]}, card {runs['card'][1]}")
     for mc, mg in zip(runs["cpu"][0], runs["card"][0]):
@@ -2264,22 +2411,159 @@ def train_card_vs_cpu(torch, np, dev, scfg, seq_len, kernels, label) -> dict:
         raise AssertionError(f"{label}: card vs CPU state differs: {worst} (tolerance "
                              f"{SMALL_TRAIN_TOL})")
     log(f"train: {label} card vs CPU: first-microbatch gradients within "
-        f"{SMALL_TRAIN_TOL['grad_atol']} + {SMALL_TRAIN_TOL['grad_rtol']}·|g|; 2 steps of 2 "
+        f"{SMALL_TRAIN_TOL['grad_atol']} + {SMALL_TRAIN_TOL['grad_rtol']}·|g|; 2 steps"
+        f"{' (each from the CPU state before it)' if per_step else ''} of 2 "
         f"microbatches of {seq_len - 1} tokens: losses {[m['loss'] for m in runs['card'][0]]} "
         f"vs {[m['loss'] for m in runs['cpu'][0]]}, grad norms within "
         f"{SMALL_TRAIN_TOL['loss']} relative; worst abs diff {worst}; card launches "
         f"{runs['card'][1]}, CPU none; {time.perf_counter() - t0:.3f}s")
-    return states["card"]
+    names = [n for n, _ in states["card"]["params"].named_parameters()]
+    return states["card"], dict(zip(names, card_grads))
+
+
+def moe_determinism(torch, dev) -> None:
+    """One full-width MoE layer of ``MOE_TRAIN_ARCH`` (bf16, seeded weights)
+    on one training microbatch (``TRAIN_MICRO`` x ``TRAIN_SEQ`` tokens; 683
+    slots an expert at capacity factor 1.25), forward and backward twice
+    on the same input and cotangent: the gradients of x, the router,
+    ``w_in``, ``w_out`` and the shared MLP must be bitwise equal. Then the
+    dispatch gather the layer had before (``xf[token_of]``, each token k
+    times, its backward an accumulating scatter) at the same routing, its
+    backward twice: logged, not gated."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config(MOE_TRAIN_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    moe = L.init_moe(cfg, gen).requires_grad_(True)
+    names = ["x", *(n for n, _ in moe.named_parameters())]
+    shape = (TRAIN_MICRO, TRAIN_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    tokens = TRAIN_MICRO * TRAIN_SEQ
+    cap = L.moe_capacity(cfg, tokens)
+    if cap != 683:
+        raise AssertionError(f"{cfg.name}: {cap} slots an expert at {tokens} tokens, not 683")
+
+    def run():
+        xx = x.clone().requires_grad_(True)
+        stats = {}
+        y, aux = L.moe_forward(cfg, moe, xx, cfg.mlp_kind, stats)
+        grads = torch.autograd.grad((y.float() * dy.float()).sum() + aux,
+                                    [xx, *moe.parameters()])
+        return stats, dict(zip(names, grads))
+
+    (stats, a), (_, b) = run(), run()
+    same = {k: bitwise_equal(torch, [a[k]], [b[k]]) for k in names}
+    log(f"train: {cfg.name} MoE layer (full width, bf16) on {TRAIN_MICRO} x {TRAIN_SEQ} "
+        f"tokens, capacity {cap} slots, {stats['dropped']} of {stats['routed']} pairs "
+        f"dropped: two forward + backward runs, gradients bitwise equal: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{cfg.name}: MoE backward differs between runs: {same}")
+    # the earlier dispatch's gather, at this routing
+    with torch.no_grad():
+        xf = x.reshape(tokens, cfg.d_model)
+        probs = torch.softmax(xf.float() @ moe.router, dim=-1)
+        topi = torch.topk(probs, cfg.moe_top_k, dim=-1)[1]
+        order = torch.sort(topi.reshape(-1), stable=True)[1]
+        cot = torch.randn((tokens * cfg.moe_top_k, cfg.d_model), generator=gen,
+                          device=dev).to(torch.bfloat16)
+    leaf = xf.clone().requires_grad_(True)
+    grads = [torch.autograd.grad(leaf[order // cfg.moe_top_k], leaf, cot)[0] for _ in range(2)]
+    log(f"train: the earlier dispatch's gather xf[token_of] ({tokens} tokens x "
+        f"{cfg.moe_top_k}, bf16): its backward twice bitwise equal: "
+        f"{bitwise_equal(torch, grads[:1], grads[1:])}, max difference "
+        f"{float((grads[0].float() - grads[1].float()).abs().max())}; "
+        f"{time.perf_counter() - t0:.3f}s")
+
+
+def remat_bitwise_on_card(torch, np, dev, scfg, seq_len, label) -> None:
+    """The reduced model ``scfg`` on the card: one microbatch's loss and
+    gradients under remat ``block`` must equal those under ``none`` bit for
+    bit (the recompute routes as the forward did)."""
+    import dataclasses as dc
+
+    from repro_torch import models
+
+    model = models.init_params(scfg, torch.Generator(device=dev).manual_seed(3), dev)
+    model.requires_grad_(True)
+    seq = torch.from_numpy(np.random.default_rng(8).integers(
+        0, scfg.vocab_size, (2, seq_len)).astype(np.int32)).to(dev)
+    mb = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    out = {}
+    for policy in ("none", "block"):
+        loss, _ = models.lm_loss(dc.replace(scfg, remat_policy=policy), model, mb)
+        out[policy] = [loss.detach().reshape(1),
+                       *torch.autograd.grad(loss, list(model.parameters()))]
+    if not bitwise_equal(torch, out["block"], out["none"]):
+        raise AssertionError(f"{label}: remat block differs from none on the card")
+    log(f"train: {label} on the card: loss and {len(out['none']) - 1} gradients under remat "
+        "block bitwise equal to none")
+
+
+def compression_on_card(torch, np, dev, scfg, seq_len, grads, label):
+    """``ef_compress_tree`` on the card against the CPU on the same
+    gradients (``grads``: CPU copies of the card's), two rounds (the second
+    carrying the first's errors), with the train step's scale groups and
+    with a scale a tensor: every dequantized gradient and error bitwise
+    equal. Then 2 steps of ``make_train_step(compress_grads=True)`` of
+    ``scfg`` on the card (4 rows of ``seq_len`` in 2 microbatches): finite
+    losses and gradient norms, errors carried. Returns that train state."""
+    from repro_torch import models
+    from repro_torch.sharding import compression
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.train.step import _stacked_leaves
+
+    t0 = time.perf_counter()
+    for groups in (_stacked_leaves(scfg, grads), None):
+        out = {}
+        for where in ("cpu", "card"):
+            g = {k: v.to("cpu" if where == "cpu" else dev) for k, v in grads.items()}
+            err = compression.init_error_state(g)
+            out[where] = []
+            for _ in range(2):
+                deq, err = compression.ef_compress_tree(g, err, groups)
+                out[where] += [*deq.values(), *err.values()]
+        if not bitwise_equal(torch, [t.cpu() for t in out["card"]], out["cpu"]):
+            raise AssertionError(f"{label}: ef_compress_tree differs card vs CPU "
+                                 f"({'grouped' if groups else 'a scale a tensor'})")
+    model = models.init_params(scfg, torch.Generator(device=dev).manual_seed(3), dev)
+    state = init_train_state(scfg, model, compress_grads=True)
+    step_fn = make_train_step(scfg, AdamWConfig(**SMALL_TRAIN_OPT), global_rows=4,
+                              compress_grads=True)
+    rng = np.random.default_rng(8)
+    mets = []
+    for _ in range(2):
+        seq = torch.from_numpy(rng.integers(0, scfg.vocab_size, (4, seq_len))
+                               .astype(np.int32)).to(dev)
+        state, m = step_fn(state, {"tokens": seq[:, :-1], "labels": seq[:, 1:]})
+        mets.append({k: float(v) for k, v in m.items()})
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in mets):
+        raise AssertionError(f"{label}: compressed training not finite: {mets}")
+    if not any(bool(e.any()) for e in state["ef_error"].values()):
+        raise AssertionError(f"{label}: compressed training carried no error")
+    log(f"train: {label}: ef_compress_tree on the card bitwise equal to the CPU on its "
+        f"first-microbatch card gradients ({len(grads)} tensors, two rounds, grouped as "
+        f"the train step's leaves and a scale a tensor); 2 compressed steps on the card: "
+        f"losses {[m['loss'] for m in mets]}, grad norms {[m['grad_norm'] for m in mets]}; "
+        f"{time.perf_counter() - t0:.3f}s")
+    return state
 
 
 def train_phase(torch, np, dev, root):
     """Materialize the training data by S/C on the card, run stablelm-3b at
     full width and depth, stablelm-12b at full width with
-    ``WIDE_TRAIN_LAYERS`` layers and mamba2-2.7b at full width and depth
-    through :func:`train_run`, then reduced GQA stablelm-3b and reduced
-    mamba2 card against CPU (:func:`train_card_vs_cpu`) and a checkpoint
-    round trip. Returns the launch counts of the three ``run_training``
-    runs, summed."""
+    ``WIDE_TRAIN_LAYERS`` layers, mamba2-2.7b at full width and depth and
+    qwen2-moe-a2.7b at full width with ``MOE_TRAIN_LAYERS`` layers through
+    :func:`train_run`; the MoE layer's backward twice, bitwise
+    (:func:`moe_determinism`); then reduced GQA stablelm-3b, reduced
+    mamba2, reduced qwen2-moe and reduced jamba (one pattern) card against
+    CPU (:func:`train_card_vs_cpu`), reduced qwen2-moe's remat ``block``
+    against ``none`` on the card, gradient compression on the card
+    (:func:`compression_on_card`) and a checkpoint round trip of the
+    plain and the compressed card states. Returns the launch counts of the
+    four ``run_training`` runs, summed."""
     import dataclasses as dc
 
     from repro_torch import configs, models
@@ -2309,44 +2593,64 @@ def train_phase(torch, np, dev, root):
         f"{time.perf_counter() - t0:.3f}s")
 
     # -- stablelm-3b at full width and depth, stablelm-12b at full width with
-    # its depth cut, mamba2-2.7b at full width and depth, each through
-    # run_training
+    # its depth cut, mamba2-2.7b at full width and depth, qwen2-moe-a2.7b at
+    # full width with its depth cut, each through run_training
     runs = [configs.get_config(TRAIN_ARCH),
             dc.replace(configs.get_config(WIDE_TRAIN_ARCH), n_layers=WIDE_TRAIN_LAYERS),
-            configs.get_config(MAMBA_TRAIN_ARCH)]
+            configs.get_config(MAMBA_TRAIN_ARCH),
+            dc.replace(configs.get_config(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)]
     counts = [train_run(torch, dev, root, dcfg, dc.replace(cfg, microbatch_size=TRAIN_MICRO))
               for cfg in runs]
     launches = {k: sum(c[k] for c in counts) for k in counts[0]}
+    moe_determinism(torch, dev)
 
-    # -- card against CPU: reduced stablelm-3b with GQA and reduced mamba2, f32
+    # -- card against CPU: reduced stablelm-3b with GQA, reduced mamba2,
+    # reduced qwen2-moe and reduced jamba (one pattern), f32
     scfg = configs.get_config(TRAIN_ARCH).reduced(dtype="float32", n_heads=8, n_kv_heads=2)
-    state = train_card_vs_cpu(torch, np, dev, scfg, 65,
-                              ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-                              f"reduced {TRAIN_ARCH} (GQA 8/2, f32)")
+    flash = ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    state, grads = train_card_vs_cpu(torch, np, dev, scfg, 65, flash,
+                                     f"reduced {TRAIN_ARCH} (GQA 8/2, f32)")
     train_card_vs_cpu(torch, np, dev,
                       configs.get_config(MAMBA_TRAIN_ARCH).reduced(dtype="float32"),
                       SMALL_MAMBA_SEQ, ("rmsnorm", "ssd_scan"),
                       f"reduced {MAMBA_TRAIN_ARCH} (f32)")
+    qcfg = configs.get_config(MOE_TRAIN_ARCH).reduced(dtype="float32")
+    train_card_vs_cpu(torch, np, dev, qcfg, 65, flash, f"reduced {MOE_TRAIN_ARCH} (f32)")
+    train_card_vs_cpu(torch, np, dev,
+                      configs.get_config("jamba-v0.1-52b").reduced(
+                          dtype="float32", n_layers=SMALL_JAMBA_LAYERS),
+                      SMALL_MAMBA_SEQ, (*flash, "ssd_scan"),
+                      f"reduced jamba-v0.1-52b ({SMALL_JAMBA_LAYERS} layers, f32)", per_step=True)
+    remat_bitwise_on_card(torch, np, dev, qcfg, 65, f"reduced {MOE_TRAIN_ARCH} (f32)")
+    cstate = compression_on_card(torch, np, dev, scfg, 65, grads,
+                                 f"reduced {TRAIN_ARCH} (GQA 8/2, f32)")
 
-    # -- a checkpoint round trip of the card state, bitwise
+    # -- a checkpoint round trip of the card states, the compressed one with
+    # its errors, bitwise
     mgr = CheckpointManager(root / "small_ckpt")
-    saved = {"train": state, "data": {"epoch": 1, "cursor": 8, "seed": 0}}
+    saved = {"train": state, "compressed": cstate, "data": {"epoch": 1, "cursor": 8, "seed": 0}}
     mgr.save(saved, 2, blocking=True)
-    template = {"train": init_train_state(scfg, models.init_params(
-                    scfg, torch.Generator(device=dev).manual_seed(9), dev)),
+
+    def fresh(compress):
+        return init_train_state(scfg, models.init_params(
+            scfg, torch.Generator(device=dev).manual_seed(9), dev), compress_grads=compress)
+
+    template = {"train": fresh(False), "compressed": fresh(True),
                 "data": {"epoch": 0, "cursor": 0, "seed": 0}}
     restored = mgr.restore(template)
 
     def tensors(tr):
-        return [*tr["train"]["params"].parameters(), *tr["train"]["opt"]["m"].values(),
-                *tr["train"]["opt"]["v"].values(), tr["train"]["opt"]["step"].reshape(1)]
+        return [t.detach() for key in ("train", "compressed") for t in (
+            *tr[key]["params"].parameters(), *tr[key]["opt"]["m"].values(),
+            *tr[key]["opt"]["v"].values(), tr[key]["opt"]["step"].reshape(1),
+            *tr[key].get("ef_error", {}).values())]
 
-    if not bitwise_equal(torch, [t.detach() for t in tensors(restored)],
-                         [t.detach() for t in tensors(saved)]) or \
-            restored["data"] != saved["data"]:
+    if len(tensors(restored)) != len(tensors(saved)) or not bitwise_equal(
+            torch, tensors(restored), tensors(saved)) or restored["data"] != saved["data"]:
         raise AssertionError("checkpoint round trip is not bitwise")
-    log(f"train: checkpoint save -> restore of the card state bitwise "
-        f"({len(tensors(saved))} tensors, step {int(restored['train']['opt']['step'])})")
+    log(f"train: checkpoint save -> restore of the card states bitwise "
+        f"({len(tensors(saved))} tensors, the compressed state's {len(cstate['ef_error'])} "
+        f"errors among them; step {int(restored['train']['opt']['step'])})")
     shutil.rmtree(root, ignore_errors=True)
     return launches
 
@@ -2851,8 +3155,12 @@ def multihost_phase(torch, core, mv, wl=None, oracle=None, part_rounds=None):
     catalog each), fault-free (A) and with host 1 killed mid-round (B),
     each in a fresh interpreter; both stores held bitwise against the
     single-host P = 8 store ``oracle`` (built here when not given, as with
-    ``--only multihost``), then removed with it. Returns the launches the
+    ``--only multihost``) in one pass that reads each of its tables once
+    (the three stores' reads of a table side by side), then removed with
+    it. Returns the launches the
     forked hosts shipped over both runs."""
+    from repro_torch.mv import tableops as T
+
     t_phase = time.perf_counter()
     root = HERE / "build" / "chip_smoke_multihost"
     shutil.rmtree(root, ignore_errors=True)
@@ -2872,23 +3180,36 @@ def multihost_phase(torch, core, mv, wl=None, oracle=None, part_rounds=None):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     launches = collections.Counter()
+    runs = {}
     for label, fault in (("A", None), ("B", MH_KILL)):
         base_mib = card_memory_used_mib()
         rep, wall, peak_mib = run_multihost_child(root / label, sizes, fault)
         check_multihost_run(label, rep, fault)
-        t0 = time.perf_counter()
-        store = mv.DiskStore(root / label, device="cuda")
-        mv.verify_scenario_equivalence(pwl, oracle, store)
-        verify_s = time.perf_counter() - t0
+        runs[label] = (fault, rep, wall, base_mib, peak_mib)
+    # both stores against the oracle, each of its tables read once, the
+    # three stores' reads of a table side by side
+    t0 = time.perf_counter()
+    stores = {label: mv.DiskStore(root / label, device="cuda") for label in runs}
+    with cf.ThreadPoolExecutor(1 + len(stores)) as pool:
+        for node in pwl.nodes:
+            want, *got = pool.map(lambda store, n=node.name: store.read(n),
+                                  [oracle, *stores.values()])
+            for label, table in zip(stores, got):
+                T.assert_tables_bitwise(want, table, f"{label}: {node.name}")
+            del want, got
+    verify_s = time.perf_counter() - t0
+    for label in runs:
         shutil.rmtree(root / label)
+    for label, (fault, rep, wall, base_mib, peak_mib) in runs.items():
         launches.update(rep["launches"])
         walls = [r["elapsed"] for r in rep["rounds"]]
         log(f"multihost: run {label} ({'fault-free' if not fault else 'kill ' + json.dumps(fault)}): "
             f"child {wall:.3f}s (start-up to the scenario {rep['import_s']:.3f}s, scenario "
             f"{rep['scenario_s']:.3f}s); rounds {[f'{w:.3f}' for w in walls]} s vs the "
             f"single-host P={N_PARTITIONS} rounds {[f'{w:.3f}' for w in part_rounds]} s; "
-            f"card memory used {base_mib} MiB before, peak {peak_mib} MiB; verify "
-            f"{verify_s:.3f}s: bitwise equal to the single-host P={N_PARTITIONS} store")
+            f"card memory used {base_mib} MiB before, peak {peak_mib} MiB; bitwise equal "
+            f"to the single-host P={N_PARTITIONS} store (verify of A and B {verify_s:.3f}s, "
+            "the oracle read once)")
         for r in rep["rounds"]:
             hosts = "; ".join(
                 f"h{h['host']}{'' if h['alive'] else ' (lost)'} executed {h['executed']} "
@@ -3122,7 +3443,12 @@ def main() -> int:
     for name in native.SOURCES:   # build from the checkout's sources, ptxas -v logged
         native.library_path(name).unlink(missing_ok=True)
     logs = native.build()
-    log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f}s")
+    log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f}s; nvcc seconds by source "
+        f"(units {native.PARTS} in parallel, then a link): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in native.build_seconds().items()))
+    for name in native.PARTS:
+        log(f"  {name}: " + ", ".join(line.strip("[]") for line in logs[name].splitlines()
+                                      if line.startswith("[unit ")))
     for name, out in logs.items():
         for line in out.splitlines():
             # the tensor-core library's lines also name each instantiation
@@ -3172,11 +3498,12 @@ def main() -> int:
                          MAIN_BYTES_PER_ROOT, MAIN_BUDGET, "cuda")
     peak_mem = torch.cuda.max_memory_allocated()
     sc_rep, serial_rep = main["sc_rep"], main["serial_rep"]
-    for name in main["names"]:
-        a, b = main["serial"].read(name), main["sc"].read(name)
-        T.assert_tables_bitwise(a, b, f"serial vs S/C {name}")
-        check_finite(torch, name, b)
-        del a, b
+    with cf.ThreadPoolExecutor(2) as pool:   # the two stores' reads side by side
+        for name in main["names"]:
+            a, b = pool.map(lambda store, n=name: store.read(n), (main["serial"], main["sc"]))
+            T.assert_tables_bitwise(a, b, f"serial vs S/C {name}")
+            check_finite(torch, name, b)
+            del a, b
     unlaunched = [k for k in ROUND_KERNELS if main["launches"][k] <= 0]
     if main["variants"]["probe_sorted/build"] <= 0:
         unlaunched.append("probe_sorted/build")

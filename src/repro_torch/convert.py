@@ -137,16 +137,24 @@ def train_state_from_reference(cfg: ModelConfig, state_tree: Mapping,
     """The port's train state (``train.init_train_state``'s structure) on
     ``device`` (default: the card) from a JAX train state of numpy arrays
     (``jax.tree.map(np.asarray, state)`` of ``{"params", "opt": {"m", "v",
-    "step"}}``): the model made trainable, and the moments and the int32
-    step count, every value bit for bit."""
+    "step"}}`` and, from ``init_train_state(compress_grads=True)``,
+    ``"ef_error"``): the model made trainable, and the moments, the int32
+    step count and the compression errors, every value bit for bit."""
     dev = resolve_device(device)
     model = params_from_reference(cfg, state_tree["params"], dev).requires_grad_(True)
     opt = state_tree["opt"]
-    return {
+
+    def named(tree):
+        return {k: _weight(a, dev) for k, a in named_reference_arrays(cfg, tree).items()}
+
+    state = {
         "params": model,
         "opt": {
-            "m": {k: _weight(a, dev) for k, a in named_reference_arrays(cfg, opt["m"]).items()},
-            "v": {k: _weight(a, dev) for k, a in named_reference_arrays(cfg, opt["v"]).items()},
+            "m": named(opt["m"]),
+            "v": named(opt["v"]),
             "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32, device=dev),
         },
     }
+    if "ef_error" in state_tree:
+        state["ef_error"] = named(state_tree["ef_error"])
+    return state

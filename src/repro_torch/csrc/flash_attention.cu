@@ -105,6 +105,20 @@
 
 #include "mma_sm90.cuh"
 
+// Translation units: the build compiles this source as five units
+// (native.PARTS), unit i with -DSC_PART=i, and links them into one library:
+// 0 the forward's C entry and its head dims 16-80, 1 dq, 2 dk/dv, 3 the
+// forward at 96-128, 4 the forward at 160 and 256 (the forward's
+// instantiations compile longest; so split, each unit takes 27-46 s of
+// nvcc on an H100's host). A unit compiles only the kernels its code
+// instantiates, so the families compile side by side. Without SC_PART the
+// whole source is one unit.
+#ifdef SC_PART
+#define SC_IN_PART(i) (SC_PART == (i))
+#else
+#define SC_IN_PART(i) 1
+#endif
+
 namespace {
 
 using sc_mma::cp_async_16;
@@ -772,8 +786,49 @@ Strides copy_strides(const long long* s, int n) {
 
 }  // namespace
 
+// The forward's wider head dims, launched from the C entry (unit 0) and
+// compiled in units 3 and 4: dp is forward_dim(d); strides as the entry's.
+namespace sc_flash_units {
+int fwd_mid(int dp, bool aligned, const void* q, const void* k, const void* v, void* o,
+            float* lse, int b, int hq, int hkv, int sq, int sk, int d,
+            const long long* strides, float scale, int causal, cudaStream_t stream);
+int fwd_wide(int dp, bool aligned, const void* q, const void* k, const void* v, void* o,
+             float* lse, int b, int hq, int hkv, int sq, int sk, int d,
+             const long long* strides, float scale, int causal, cudaStream_t stream);
+}  // namespace sc_flash_units
+
+#define SC_FWD(DP)                                                                       \
+  case DP:                                                                               \
+    return fwd_at<DP>(aligned, q, k, v, o, lse, b, hq, hkv, sq, sk, d, copy_strides(strides, 9), \
+                      scale, causal, stream);
+
+#if SC_IN_PART(3)
+int sc_flash_units::fwd_mid(int dp, bool aligned, const void* q, const void* k, const void* v,
+                            void* o, float* lse, int b, int hq, int hkv, int sq, int sk, int d,
+                            const long long* strides, float scale, int causal,
+                            cudaStream_t stream) {
+  switch (dp) {
+    SC_FWD(96) SC_FWD(112) SC_FWD(128)
+    default: return kInvalid;
+  }
+}
+#endif
+
+#if SC_IN_PART(4)
+int sc_flash_units::fwd_wide(int dp, bool aligned, const void* q, const void* k, const void* v,
+                             void* o, float* lse, int b, int hq, int hkv, int sq, int sk, int d,
+                             const long long* strides, float scale, int causal,
+                             cudaStream_t stream) {
+  switch (dp) {
+    SC_FWD(160) SC_FWD(256)
+    default: return kInvalid;
+  }
+}
+#endif
+
 extern "C" {
 
+#if SC_IN_PART(0)
 // dtype: 0 = float32 (1 = bfloat16 is refused: sc_flash_fwd_mma runs it).
 // strides = {q batch, q head, q row, k batch, k head, k row, v batch,
 // v head, v row}, in elements.
@@ -785,20 +840,25 @@ int sc_flash_fwd(const void* q, const void* k, const void* v, void* o, float* ls
   if (dtype != 0 || bad_shape(b, hq, hkv, d) || static_cast<long long>(b) * hq > 0x7fffffffLL ||
       (sq + 63) / 64 > 65535)
     return kInvalid;
-  const Strides st = copy_strides(strides, 9);
   const bool aligned = rows_aligned(q, strides, b, hq, sq) &&
                        rows_aligned(k, strides + 3, b, hkv, sk) &&
                        rows_aligned(v, strides + 6, b, hkv, sk);
-  switch (forward_dim(d)) {
-#define SC_FWD(DP) \
-  case DP: return fwd_at<DP>(aligned, q, k, v, o, lse, b, hq, hkv, sq, sk, d, st, scale, causal, stream);
-    SC_FWD(16) SC_FWD(32) SC_FWD(48) SC_FWD(64) SC_FWD(80) SC_FWD(96) SC_FWD(112)
-    SC_FWD(128) SC_FWD(160) SC_FWD(256)
-#undef SC_FWD
+  const int dp = forward_dim(d);
+  switch (dp) {
+    SC_FWD(16) SC_FWD(32) SC_FWD(48) SC_FWD(64) SC_FWD(80)
+    case 96: case 112: case 128:
+      return sc_flash_units::fwd_mid(dp, aligned, q, k, v, o, lse, b, hq, hkv, sq, sk, d,
+                                     strides, scale, causal, stream);
+    case 160: case 256:
+      return sc_flash_units::fwd_wide(dp, aligned, q, k, v, o, lse, b, hq, hkv, sq, sk, d,
+                                      strides, scale, causal, stream);
     default: return kInvalid;
   }
 }
+#endif
+#undef SC_FWD
 
+#if SC_IN_PART(1)
 // dq (b, hq, sq, d) from q, k, v, do, lse and delta; float32 only (dtype 1,
 // bf16, is refused: sc_flash_bwd_dq_mma runs it). strides = the forward's
 // nine, then {do batch, do head, do row}.
@@ -826,7 +886,9 @@ int sc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dou
     default: return kInvalid;
   }
 }
+#endif
 
+#if SC_IN_PART(2)
 // dk, dv (b, hkv, sk, d), each summed over its kv head's query heads;
 // float32 only (dtype 1, bf16, is refused: sc_flash_bwd_dkv_mma runs it).
 // Strides as for sc_flash_bwd_dq.
@@ -854,5 +916,6 @@ int sc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* do
     default: return kInvalid;
   }
 }
+#endif
 
 }  // extern "C"

@@ -126,6 +126,17 @@
 
 #include "mma_sm90.cuh"
 
+// Translation units: the build compiles this source as three units
+// (native.PARTS), unit i with -DSC_PART=i (0: the forward, 1: dq, 2:
+// dk/dv), and links them into one library. Each C entry, and the kernels
+// its switch instantiates, lies in one unit, so the three families compile
+// side by side. Without SC_PART the whole source is one unit.
+#ifdef SC_PART
+#define SC_IN_PART(i) (SC_PART == (i))
+#else
+#define SC_IN_PART(i) 1
+#endif
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -877,6 +888,7 @@ int forward_dim(int d) {
   return d <= 160 ? 160 : 256;
 }
 
+#if SC_IN_PART(0)
 int run_fwd(const Args& a, bool aligned) {
   switch (forward_dim(a.d)) {
     case 16: return fwd_at<16>(a, aligned);
@@ -892,7 +904,9 @@ int run_fwd(const Args& a, bool aligned) {
     default: return kInvalid;
   }
 }
+#endif
 
+#if SC_IN_PART(1)
 int run_dq(const Args& a, bool aligned) {
   switch (forward_dim(a.d)) {
     case 16: return dq_at<16>(a, aligned);
@@ -908,7 +922,9 @@ int run_dq(const Args& a, bool aligned) {
     default: return kInvalid;
   }
 }
+#endif
 
+#if SC_IN_PART(2)
 int run_dkv(const Args& a, bool aligned) {
   switch (forward_dim(a.d)) {
     case 16: return dkv_at<16>(a, aligned);
@@ -924,6 +940,7 @@ int run_dkv(const Args& a, bool aligned) {
     default: return kInvalid;
   }
 }
+#endif
 
 bool bad_shape(int b, int hq, int hkv, int sq, int sk) {
   return hkv <= 0 || hq % hkv != 0 || static_cast<long long>(b) * hq > 0x7fffffffLL ||
@@ -940,6 +957,7 @@ Strides copy_strides(const long long* s, int n) {
 
 extern "C" {
 
+#if SC_IN_PART(0)
 // bf16 only. strides = {q batch, q head, q row, k ..., v ...}, in elements;
 // aligned: every row of q, k and v starts on 16 bytes (base addresses and
 // strides; see the header).
@@ -953,7 +971,9 @@ int sc_flash_fwd_mma(const void* q, const void* k, const void* v, void* o, float
          b, hq, hkv, sq, sk, d, copy_strides(strides, 9), scale, causal, stream};
   return run_fwd(a, aligned != 0);
 }
+#endif
 
+#if SC_IN_PART(2)
 // dk, dv (b, hkv, sk, d), each summed over its kv head's query heads, bf16
 // only. strides = the forward's nine, then {do batch, do head, do row};
 // aligned as for sc_flash_fwd_mma, over q, k, v and do.
@@ -968,7 +988,9 @@ int sc_flash_bwd_dkv_mma(const void* q, const void* k, const void* v, const void
          b, hq, hkv, sq, sk, d, copy_strides(strides, 12), scale, causal, stream};
   return run_dkv(a, aligned != 0);
 }
+#endif
 
+#if SC_IN_PART(1)
 // dq (b, hq, sq, d), bf16 only. Strides and aligned as for
 // sc_flash_bwd_dkv_mma.
 int sc_flash_bwd_dq_mma(const void* q, const void* k, const void* v, const void* dout,
@@ -982,5 +1004,6 @@ int sc_flash_bwd_dq_mma(const void* q, const void* k, const void* v, const void*
          b, hq, hkv, sq, sk, d, copy_strides(strides, 12), scale, causal, stream};
   return run_dq(a, aligned != 0);
 }
+#endif
 
 }  // extern "C"

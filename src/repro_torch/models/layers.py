@@ -237,7 +237,28 @@ def moe_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor, mlp_kind: str = "glu"
     order, the order of the reference's sorted scatter-add (no atomics: the
     same sum on every run), casts to x's type and adds the shared and the
     dense MLPs. With ``stats``, adds the pairs dropped under ``"dropped"``
-    and the pairs routed under ``"routed"`` (a host sync each)."""
+    and the pairs routed under ``"routed"`` (a host sync each).
+
+    The backward is the same on every run, on the card too: no indexed op
+    here sums two values into one place in an order that could change.
+
+    - The buffer's rows are taken from x broadcast over the k slots, by
+      (token, slot): the pairs are a permutation, so the backward scatters
+      into distinct places and then sums each token's k rows in a fixed
+      reduction. Taking ``xf[token_of]`` instead would repeat each token k
+      times and sum its k gradients by an accumulating scatter.
+    - Dropped pairs write zeros into the drop bin, so its several writes
+      agree and its row, its expert outputs and its gradients are exactly
+      zero whichever write lands.
+    - ``hout[sorted_e, dest_c]`` repeats an index only at the drop bin,
+      whose weight is 0: its backward sums only signed zeros there, whose
+      sum does not depend on the order.
+    - ``contrib[order]``, ``topw...[order]`` and ``contrib[rows, e_j]`` use
+      distinct indices (a permutation; one slot a token), so each backward
+      writes every place at most once.
+
+    A recompute (remat) routes as the forward did: ``topk``, the stable
+    sort and the capacity depend on x alone."""
     b, s, d = x.shape
     e, k = cfg.moe_experts_padded, cfg.moe_top_k
     t = b * s
@@ -255,7 +276,7 @@ def moe_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor, mlp_kind: str = "glu"
     sorted_e, order = torch.sort(flat_e, stable=True)
     starts = torch.searchsorted(sorted_e, torch.arange(e, device=x.device))
     pos = torch.arange(t * k, device=x.device) - starts[sorted_e]
-    token_of = order // k
+    token_of, slot_of = order // k, order % k
     valid = pos < cap
     dest_c = torch.where(valid, pos, cap)                     # cap: the drop bin
     if stats is not None:
@@ -263,8 +284,9 @@ def moe_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor, mlp_kind: str = "glu"
         stats["dropped"] = stats.get("dropped", 0) + dropped
         stats["routed"] = stats.get("routed", 0) + t * k
 
+    pairs = xf.unsqueeze(1).expand(t, k, d)[token_of, slot_of]   # (T·k, d)
     buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[sorted_e, dest_c] = xf[token_of]      # only the drop bin takes two writes
+    buf[sorted_e, dest_c] = torch.where(valid[:, None], pairs, 0)   # the drop bin: zeros
     hout = torch.bmm(_glu(mlp_kind, torch.bmm(buf, p.w_in)), p.w_out)  # (E, cap+1, d)
 
     # back to (token, slot) order, then each token's k slots by expert

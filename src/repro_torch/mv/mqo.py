@@ -224,14 +224,15 @@ def verify_merged_equivalence(
 ) -> None:
     """Assert every original MV is bitwise identical to its representative
     in the merged store — the MQO correctness contract: sharing may change
-    how often a subtree executes, never the bytes any view stores."""
+    how often a subtree executes, never the bytes any view stores. Each
+    representative is read once and held against every MV it stands for."""
+    by_rep: dict[str, list[str]] = {}
     for node in merged.source.nodes:
-        rep = merged.name_map[node.name]
-        T.assert_tables_bitwise(
-            ref_store.read(node.name),
-            shared_store.read(rep),
-            f"{node.name}->{rep}",
-        )
+        by_rep.setdefault(merged.name_map[node.name], []).append(node.name)
+    for rep, names in by_rep.items():
+        got = shared_store.read(rep)
+        for name in names:
+            T.assert_tables_bitwise(ref_store.read(name), got, f"{name}->{rep}")
 
 
 # ---------------------------------------------------------------------------

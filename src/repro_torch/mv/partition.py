@@ -58,6 +58,7 @@ MKP on the refresh critical path.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
 import itertools
 import threading
@@ -457,15 +458,17 @@ def verify_partitioned_equivalence(
     """Assert every MV assembled from its partitions is bitwise identical to
     the reference (unpartitioned) store's content in canonical order — the
     correctness claim of partition-granular refresh. Raises AssertionError
-    with the first divergent column."""
+    with the first divergent column. An MV's partitions and its reference
+    are read side by side, one thread each."""
     P = max(int(n_partitions), 1)
-    for node in workload.nodes:
-        parts = [
-            part_store.read(partition_entry_name(node.name, p))
-            for p in range(P)
-        ] if P > 1 else [part_store.read(node.name)]
-        T.assert_tables_bitwise(
-            concat_partitions(parts),
-            canonical_order(ref_store.read(node.name)),
-            node.name,
-        )
+    with cf.ThreadPoolExecutor(P + 1) as pool:
+        for node in workload.nodes:
+            names = ([partition_entry_name(node.name, p) for p in range(P)]
+                     if P > 1 else [node.name])
+            ref = pool.submit(ref_store.read, node.name)
+            parts = list(pool.map(part_store.read, names))
+            T.assert_tables_bitwise(
+                concat_partitions(parts),
+                canonical_order(ref.result()),
+                node.name,
+            )

@@ -5,9 +5,11 @@ shared library with a plain ``extern "C"`` interface, loaded with ctypes.
 The build happens at first use, into ``build/repro_torch/`` at the root of
 the repository, under a name keyed by a hash of the sources and the flags:
 a changed source is rebuilt, an unchanged one reused. ``build`` starts one
-``nvcc`` per source, all at once, and waits for them together; a file
-lock in the build directory lets one process build while others (the forked
-hosts of a multi-host pool, say) wait and then load what it built.
+``nvcc`` per source, all at once, and waits for them together; a source in
+:data:`PARTS` compiles as several translation units, one ``nvcc`` each,
+started with the rest and linked into its one library. A file lock in the
+build directory lets one process build while others (the forked hosts of a
+multi-host pool, say) wait and then load what it built.
 
 Each family of kernels declares its C entry points with :func:`declare`.
 :func:`launch` calls one of them on a device's current stream, raises when
@@ -24,6 +26,7 @@ architecture its SASS comes from: what the determinism lints
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import contextlib
 import ctypes
 import fcntl
@@ -32,6 +35,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from collections.abc import Iterable, Iterator, Mapping
 from pathlib import Path
 
@@ -40,6 +44,13 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 SOURCES = ("dataplane", "rmsnorm", "flash_attention", "flash_attention_mma", "ssd_scan")
+# Sources compiled as n translation units, unit i with -DSC_PART=i (the
+# source guards each unit's share with SC_IN_PART), linked into one
+# library: with one nvcc a source the f32 flash source set the whole
+# build's length (137.8 s on an H100's host, every other source but the
+# bf16 flash one under 12 s); in units the build takes 42-46 s there (the
+# sources say how they split).
+PARTS = {"flash_attention": 5, "flash_attention_mma": 3}
 
 # No --use_fast_math: the data-plane kernels hold a bitwise contract with
 # the numpy reference, and every rounding step is spelled out in the source;
@@ -77,6 +88,7 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[str, ctypes._CFuncPtr] = {}
 _build_logs: dict[str, str] = {}
+_build_seconds: dict[str, float] = {}
 # C entry point -> (source, its arguments before the stream)
 _entry_points: dict[str, tuple[str, list]] = {}
 # launches of every kernel, and of "kernel/variant" for a variant's share
@@ -131,6 +143,7 @@ def _digest(name: str, flags) -> str:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(flags).encode())
+    h.update(f"parts={PARTS.get(name, 1)}".encode())
     return h.hexdigest()[:16]
 
 
@@ -184,10 +197,12 @@ def _ptx(source: Path, target: Path) -> str:
 
 
 def build(names=SOURCES) -> dict[str, str]:
-    """Compile every named source that is not built yet, one ``nvcc`` each,
-    all started together. Returns ``{name: compiler output}`` (``ptxas -v``
-    register and spill report) and raises ``RuntimeError`` naming every
-    source that failed."""
+    """Compile every named source that is not built yet, one ``nvcc`` each
+    (one a unit for a source of :data:`PARTS`), all started together
+    (:func:`build_seconds` gives each source's wall seconds). Returns
+    ``{name: compiler output}`` (``ptxas -v`` register and spill report,
+    each unit's headed by its seconds) and raises ``RuntimeError`` naming
+    every source that failed."""
     with _lock:
         return _build_locked(tuple(names))
 
@@ -207,29 +222,76 @@ def _build_locked(names: tuple[str, ...]) -> dict[str, str]:
 
 
 def _build_unshared(names: tuple[str, ...]) -> dict[str, str]:
-    procs = {}
+    todo = []
     for name in names:
-        target = library_path(name)
-        if target.exists():
+        if library_path(name).exists():
             _build_logs.setdefault(name, "(cached build)")
-            continue
-        tmp = target.with_suffix(f".so.tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, target)
-    failed = []
-    for name, (proc, tmp, target) in procs.items():
-        out, _ = proc.communicate()
-        _build_logs[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
-            tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, target)
+            todo.append(name)
+    failed = []
+    if todo:
+        with cf.ThreadPoolExecutor(len(todo)) as pool:
+            for name, ok in zip(todo, pool.map(_compile, todo)):
+                if not ok:
+                    failed.append(f"{name}.cu:\n{_build_logs[name]}")
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return {name: _build_logs.get(name, "") for name in names}
+
+
+def _compile(name: str) -> bool:
+    """Compile ``csrc/<name>.cu`` into :func:`library_path`: one ``nvcc``,
+    or one a unit of :data:`PARTS` (started together) and a link. Records
+    its output and seconds; returns whether it succeeded."""
+    t0 = time.perf_counter()
+    target = library_path(name)
+    tmp = target.with_suffix(f".so.tmp{os.getpid()}")
+    src = str(CSRC / f"{name}.cu")
+    n = PARTS.get(name, 1)
+    if n == 1:
+        objs, jobs = [], [[_nvcc(), *NVCC_FLAGS, "-o", str(tmp), src]]
+    else:
+        objs = [tmp.with_suffix(f".unit{i}.o") for i in range(n)]
+        unit_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        jobs = [[_nvcc(), *unit_flags, "-c", f"-DSC_PART={i}", "-o", str(obj), src]
+                for i, obj in enumerate(objs)]
+    procs = [subprocess.Popen(job, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for job in jobs]
+
+    def finish(proc):
+        out = proc.communicate()[0]
+        return out, time.perf_counter() - t0
+
+    with cf.ThreadPoolExecutor(len(procs)) as pool:
+        done = list(pool.map(finish, procs))
+    outs, ok = [], True
+    for i, (proc, (out, secs)) in enumerate(zip(procs, done)):
+        outs.append(out if n == 1 else f"[unit {i}: {secs:.1f} s]\n{out}")
+        if proc.returncode != 0:
+            ok = False
+            outs.append(f"(nvcc exit {proc.returncode})")
+    if ok and objs:
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        outs.append(link.stdout)
+        if link.returncode != 0:
+            ok = False
+            outs.append(f"(link exit {link.returncode})")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if ok:
+        os.replace(tmp, target)
+    else:
+        tmp.unlink(missing_ok=True)
+    _build_logs[name] = "\n".join(outs)
+    _build_seconds[name] = time.perf_counter() - t0
+    return ok
+
+
+def build_seconds() -> dict[str, float]:
+    """Each source's wall seconds in the builds this process made (its
+    units' ``nvcc`` and the link), by name."""
+    return dict(_build_seconds)
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -22,11 +22,15 @@ import pytest
 import torch
 
 import repro.models.layers as jl
+import repro.sharding.compression as jcomp
 import repro.train.loop as jloop
+import repro.train.step as jstep
 from repro import configs as jcfg
 from repro.kernels import dispatch
 import repro_torch.models.layers as tl
+import repro_torch.sharding.compression as tcomp
 import repro_torch.train.loop as tloop
+import repro_torch.train.step as tstep
 from repro_torch import configs as tcfg
 
 TOL = dict(atol=1e-4, rtol=1e-4)   # the serving tests' logit tolerance (f32)
@@ -49,6 +53,33 @@ def test_every_reference_parameter_is_in_the_port(name):
         port_name = RENAMED.get(pname, pname)
         assert port_name in got, f"{name}: no {port_name}"
         assert got[port_name].default == param.default, f"{name}({port_name}=)"
+
+
+# make_train_step(dp=) fixes the data-parallel microbatch split: it comes
+# with the sharding slice of the port.
+WITH_SHARDING = {"dp"}
+
+
+@pytest.mark.parametrize("module,name", [
+    ("compression", "quantize_int8"), ("compression", "dequantize_int8"),
+    ("compression", "ef_compress_tree"), ("compression", "init_error_state"),
+    ("step", "init_train_state"), ("step", "make_train_step")])
+def test_compression_and_train_step_take_every_reference_parameter(module, name):
+    ref, port = {"compression": (jcomp, tcomp), "step": (jstep, tstep)}[module]
+    want = inspect.signature(getattr(ref, name)).parameters
+    got = inspect.signature(getattr(port, name)).parameters
+    for pname, param in want.items():
+        if pname in WITH_SHARDING:
+            assert pname not in got, f"{name}({pname}=)"
+            continue
+        assert pname in got, f"{name}: no {pname}"
+        default = param.default   # the two packages' AdamWConfig: compare fields
+        if dataclasses.is_dataclass(default):
+            assert dataclasses.asdict(got[pname].default) == dataclasses.asdict(default)
+        else:
+            assert got[pname].default == default, f"{name}({pname}=)"
+    assert list(got)[:len(want) - len(WITH_SHARDING & set(want))] == [
+        p for p in want if p not in WITH_SHARDING], name
 
 
 def test_loop_config_has_every_reference_field():

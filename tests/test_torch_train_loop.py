@@ -101,9 +101,23 @@ def test_planner_policy_runs(tmp_path):
 
 
 def test_compress_grads_waits_for_the_sharding_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="sharding"):
-        run_training(tiny_cfg(), loop_cfg(tmp_path, "c", 1, compress_grads=True), dconf(),
-                     device="cpu")
+    """``compress_grads`` no longer waits: the loop trains with int8
+    error-feedback compression (only ``compressed_psum`` waits for the
+    sharding slice), checkpoints the errors and resumes from them."""
+    cfg, opt = tiny_cfg(), AdamWConfig(lr=1e-3, warmup_steps=2)
+    full = run_training(cfg, loop_cfg(tmp_path, "c", 4, ckpt_every=2, compress_grads=True),
+                        dconf(), opt, device="cpu")
+    assert all(np.isfinite(full["losses"])) and len(full["losses"]) == 4
+    err = full["state"]["ef_error"]
+    assert set(err) == set(full["state"]["opt"]["m"]) and any(e.any() for e in err.values())
+    run_training(cfg, loop_cfg(tmp_path, "r", 2, ckpt_every=2, compress_grads=True), dconf(),
+                 opt, device="cpu")
+    resumed = run_training(cfg, loop_cfg(tmp_path, "r", 4, ckpt_every=2, compress_grads=True),
+                           dconf(), opt, device="cpu")
+    assert resumed["resumed_from"] == 2
+    assert resumed["losses"] == full["losses"][2:]
+    for k, e in err.items():
+        assert torch.equal(e, resumed["state"]["ef_error"][k]), k
 
 
 def test_train_cli_on_cpu(tmp_path):
