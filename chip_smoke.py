@@ -7,8 +7,8 @@ Hopper card.
 
 Phases, in order; any failure raises and exits non-zero (``--only`` runs the
 card and build phases and then the named ones of lint, kernels, multihost,
-mqo, examples, serve, moe, mamba and train, and prints no kernels or result
-line):
+mqo, examples, serve, moe, mamba, train and shard, and prints no kernels or
+result line):
 
 1. card    — the card's name and power limit (``nvidia-smi``);
 2. build   — ``nvcc`` for every CUDA source of the port, all in parallel
@@ -213,8 +213,9 @@ line):
              (d_model 5120, 32 over 8 heads of 160, d_ff 13824, vocab
              100352) with its depth cut to 4 layers, the same way (its
              final save too), so the wide bf16 dk/dv kernel runs on a
-             training path. Then mamba2-2.7b at full width and depth (64
-             SSD layers, state 128), the same way: the SSD scan's kernels
+             training path. Then mamba2-2.7b at full width (state 128)
+             with its depth cut to 16 of 64 SSD layers (the whole script's
+             limit, since the shard phase joined), the same way: the SSD scan's kernels
              twice a layer (forward and recompute), its backward in PyTorch
              ops, no flash; the profiled step also gives the SSD backward's
              device time by op and its share of the step. Then
@@ -238,7 +239,29 @@ line):
              stablelm-3b's card gradients, and 2 compressed train steps on
              the card; a bitwise checkpoint save/restore round trip of the
              plain and the compressed states (its errors too);
-15. a JSON line listing every kernel and variant with its launches over
+15. shard  — the sharded steps: an unsharded twin in its own interpreter
+             and four ranks (``--shard-child``; they read the twin's
+             results as it writes them) sharing the card as a
+             2 x 2 data x model mesh on gloo (NCCL refuses ranks that share
+             a device), every rank's weights drawn from the twin's seed on
+             the card, its shard kept. Reduced qwen2-moe in f32 under FSDP
+             off and on with the gather and the expert-parallel MoE (a
+             train step of dp 2 in 2 microbatches, a prefill and 4 decode
+             steps), each within 1e-4 of the twin's; qwen2-moe-a2.7b at
+             full width cut to 4 layers, bf16, capacity 1.25: one FSDP train
+             step (the loss within 1e-2, the gradients' global norm, three
+             tensors' first moments and updated parameters within limits
+             set from runs), a prefill of 4 x 512 tokens and 16 decode
+             steps fed the twin's tokens (their logits' errors logged),
+             and the same calls on the twin's own inputs sub-layer by
+             sub-layer, the gate (each output and the head within 1e-2,
+             the same routing and dropped pairs); each
+             rank's errors, collective calls and bytes by kind,
+             host-staged bytes, walls, peak memory and launches (RMSNorm
+             and the three flash kernels, the same on every rank) logged,
+             and the card's peak over every process (``nvidia-smi``,
+             within 72 GB);
+16. a JSON line listing every kernel and variant with its launches over
    every path (the multi-host path's also alone: ``multihost_launches``),
    its times (event windows and device alone), its bound and
    its worst error over its cases; then the JSON result line.
@@ -454,10 +477,12 @@ TRAIN_SHAPE = (2, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 80, True)  # one microbatch's at
 WIDE_TRAIN_ARCH, WIDE_TRAIN_LAYERS = "stablelm-12b", 4
 WIDE_TRAIN_SHAPE = (2, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 160, True)
 GEMMA_TRAIN_SHAPE = (2, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 256, True)   # gemma-7b's heads
-# Then mamba2-2.7b at full width and depth (64 SSD layers), the same rows,
-# steps and data: the SSD scan's forward kernels under remat and its
-# closed-form backward in PyTorch ops (kernels.ssd_scan.SSDScan).
-MAMBA_TRAIN_ARCH = "mamba2-2.7b"
+# Then mamba2-2.7b at full width, its depth cut from 64 SSD layers to 16 (at
+# 64 its run took 53 s of a whole script that reached 1169.7 s on a slow
+# host once the shard phase joined), the same rows, steps and data: the SSD
+# scan's forward kernels under remat and its closed-form backward in
+# PyTorch ops (kernels.ssd_scan.SSDScan).
+MAMBA_TRAIN_ARCH, MAMBA_TRAIN_LAYERS = "mamba2-2.7b", 16
 # SSDScan's gradients held on the card at mamba2-2.7b's training
 # microbatch (2, 4096, 80, 64, 128) and jamba's prefill (4, 512, 128, 64,
 # 16), (b, s, h, p, n).
@@ -500,6 +525,61 @@ SMALL_TRAIN_OPT = dict(lr=1e-2, warmup_steps=2)
 SMALL_TRAIN_TOL = {"loss": 1e-5, "grad_atol": 1e-5, "grad_rtol": 1e-4,
                    "params_max": SMALL_TRAIN_OPT["lr"] / 4, "params_close": 1e-5,
                    "params_share": 1e-3, "m": 2e-6, "v": 2e-8}
+
+
+# The shard phase: four ranks sharing the card as a 2 x 2 data x model mesh
+# (gloo: NCCL refuses ranks that share a device), each in a fresh
+# interpreter (``--shard-child``), against the port's unsharded twin run
+# first in an interpreter of its own. The small model is the reference's
+# own reduction of qwen2-moe-a2.7b (tests/sharding/test_strategy.py:95) in
+# f32, drop-free (16.0), under FSDP off and on with the gather and the
+# expert-parallel dispatch: a train step (8 rows of 16 tokens, dp 2, 2
+# microbatches), a prefill of 4 x 12 tokens and 4 decode steps, each within
+# 1e-4 of ||want|| (a parameter's elements whose gradient is near zero
+# aside, as in the CPU tests). Full width: qwen2-moe-a2.7b at the
+# train-qwen2-moe-a2.7b-4L cell's 4 of 24 layers, bf16, capacity 1.25: one
+# FSDP train step of 2 rows (one a data rank) of 2048 tokens, then a
+# prefill of 4 x 512 tokens and 16 decode steps fed the twin's greedy
+# tokens on the TP x DP layout without FSDP (the per-step weight gathers
+# over gloo would take ~3 s a step). The train step: the loss within 1e-2
+# relative; the gradients' global norm, and for SHARD_CHECKED the first
+# moments' norms (after one step m = 0.1 g: each tensor's gradient after
+# the data sums and FSDP's reduce-scatter) and the updated parameters
+# element by element (the update, the ZeRO-1 parts and the gather back,
+# as ||got - want|| / ||want - before||) within SHARD_TRAIN_TOL, limits
+# set from runs' readings (PERF.md). The step's learning rate is the full
+# 3e-4 (warm-up of 1 step): at the default warm-up's 3e-6 a bf16 weight
+# of ~0.02 would not move. The same serving calls replayed on the twin's
+# own inputs, sub-layer by sub-layer (shard_serve(feed=)) are the gate:
+# each mixer's and MoE's output and the head's logits within 1e-2 of
+# ||want||, at most 1% of tokens with another top-k set, and a call whose
+# top-k sets agree on every token keeps exactly the twin's pairs. The
+# free-running calls' logits are logged, not held: top-k routing on
+# near-uniform random routers turns bf16 sums taken in another order into
+# other experts, more with every layer (2.8-4.6e-2 of ||want||, PERF.md).
+# The card's peak over every process must stay within 72 GB.
+SHARD_WORLD, SHARD_MESH = 4, (2, 2)
+SHARD_SEED = 11
+SHARD_SMALL = dict(d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=256,
+                   moe_experts=8, moe_top_k=2, head_dim=16, dtype="float32",
+                   moe_capacity_factor=16.0)
+SHARD_SMALL_CASES = ((False, "gather"), (False, "shard_map_ep"), (True, "gather"),
+                     (True, "shard_map_ep"))
+SHARD_SMALL_ROWS, SHARD_SMALL_SEQ, SHARD_SMALL_PROMPT = 8, 16, 12
+SHARD_SMALL_TOL = 1e-4
+SHARD_NEAR_ZERO = 2e-3
+SHARD_FULL_LAYERS = 4
+SHARD_TRAIN_ROWS, SHARD_TRAIN_SEQ = 2, 2048
+SHARD_SERVE_BATCH, SHARD_SERVE_PROMPT, SHARD_SERVE_NEW = 4, 512, 16
+SHARD_FULL_TOL = 1e-2
+SHARD_FULL_OPT = dict(warmup_steps=1)
+SHARD_CHECKED = ("embed", "layers.0.ffn.w_in", "lm_head")
+# read on an H100 (PERF.md): grad_norm 4.2e-4, m norms 1.1e-5-3.2e-4,
+# updates 0.046-0.28 (a shard laid out wrong reads ~1.4)
+SHARD_TRAIN_TOL = {"grad_norm": 2e-3, "m_norm": 2e-3, "update": 0.5}
+SHARD_SWAP_SHARE = 1e-2
+SHARD_PEAK_MIB = int(72e9 / 2**20)    # 72 GB
+SHARD_TIMEOUT = 400.0
 
 
 def log(msg: str) -> None:
@@ -2554,7 +2634,8 @@ def compression_on_card(torch, np, dev, scfg, seq_len, grads, label):
 def train_phase(torch, np, dev, root):
     """Materialize the training data by S/C on the card, run stablelm-3b at
     full width and depth, stablelm-12b at full width with
-    ``WIDE_TRAIN_LAYERS`` layers, mamba2-2.7b at full width and depth and
+    ``WIDE_TRAIN_LAYERS`` layers, mamba2-2.7b at full width with
+    ``MAMBA_TRAIN_LAYERS`` layers and
     qwen2-moe-a2.7b at full width with ``MOE_TRAIN_LAYERS`` layers through
     :func:`train_run`; the MoE layer's backward twice, bitwise
     (:func:`moe_determinism`); then reduced GQA stablelm-3b, reduced
@@ -2592,12 +2673,11 @@ def train_phase(torch, np, dev, root):
         f"{rep.peak_catalog_bytes:.0f} B within budget {dcfg.catalog_budget_bytes:.0f} B; "
         f"{time.perf_counter() - t0:.3f}s")
 
-    # -- stablelm-3b at full width and depth, stablelm-12b at full width with
-    # its depth cut, mamba2-2.7b at full width and depth, qwen2-moe-a2.7b at
-    # full width with its depth cut, each through run_training
+    # -- stablelm-3b at full width and depth, then stablelm-12b, mamba2-2.7b and
+    # qwen2-moe-a2.7b, each at full width with its depth cut, through run_training
     runs = [configs.get_config(TRAIN_ARCH),
             dc.replace(configs.get_config(WIDE_TRAIN_ARCH), n_layers=WIDE_TRAIN_LAYERS),
-            configs.get_config(MAMBA_TRAIN_ARCH),
+            dc.replace(configs.get_config(MAMBA_TRAIN_ARCH), n_layers=MAMBA_TRAIN_LAYERS),
             dc.replace(configs.get_config(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)]
     counts = [train_run(torch, dev, root, dcfg, dc.replace(cfg, microbatch_size=TRAIN_MICRO))
               for cfg in runs]
@@ -3345,10 +3425,627 @@ def check_finite(torch, name, table):
             raise AssertionError(f"{name}.{col} holds non-finite values")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sharded train and serve steps on a 2 x 2 mesh of ranks on the card
+# ---------------------------------------------------------------------------
+
+def shard_cfgs():
+    """The small and the full-width configurations of the shard phase."""
+    from repro_torch import configs
+
+    small = configs.get_config(MOE_ARCH).reduced(**SHARD_SMALL)
+    full = dataclasses.replace(configs.get_config(MOE_ARCH), n_layers=SHARD_FULL_LAYERS)
+    return small, full
+
+
+def shard_batch(np, vocab, rows, seq, seed):
+    """A train batch of ``rows`` rows of ``seq`` positions made from a seed
+    (numpy), ids below ``vocab``."""
+    seqs = np.random.default_rng(seed).integers(0, vocab, (rows, seq + 1))
+    return {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+
+
+def shard_child(args) -> int:
+    """``chip_smoke.py --shard-child JSON``: the shard phase's unsharded
+    twin (``role: twin``) or one rank of its mesh (``role: rank``), in this
+    fresh interpreter; prints its report as the last line."""
+    sys.path.insert(0, str(HERE / "src"))
+    cfg = json.loads(args)
+    root = Path(cfg["root"])
+    if cfg["role"] == "twin":
+        report = shard_twin(root)
+    else:
+        report = shard_rank(root, cfg["rank"])
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def shard_twin(root: Path) -> dict:
+    """The port's unsharded runs the ranks are held against, on the card,
+    saved under ``root``: the small model's train step and its prefill and
+    decode steps (``twin_small.pt``), and the full-width model's train step
+    and its prefill and 16 greedy decode steps with their routing
+    (``twin_full.pt``; ``SHARD_CHECKED``'s updated parameters in
+    ``twin_train.pt``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import models
+    from repro_torch.kernels import ops
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    small, full = shard_cfgs()
+    report = {}
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SHARD_SEED)
+
+    def tensors(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    # -- the small model (f32, drop-free): a train step, then a prefill and decode
+    model = models.init_params(small, gen(), dev)
+    state = init_train_state(small, model)
+    batch = tensors(shard_batch(np, small.vocab_size, SHARD_SMALL_ROWS, SHARD_SMALL_SEQ, 1))
+    state, met = make_train_step(small, AdamWConfig(**SMALL_TRAIN_OPT), dp=SHARD_MESH[0],
+                                 global_rows=SHARD_SMALL_ROWS)(state, batch)
+    out = {"loss": float(met["loss"]), "lr": float(met["lr"]),
+           "params": {k: p.detach().cpu() for k, p in model.named_parameters()},
+           "m": {k: t.cpu() for k, t in state["opt"]["m"].items()},
+           "v": {k: t.cpu() for k, t in state["opt"]["v"].items()}}
+    with torch.inference_mode():
+        model = models.init_params(small, gen(), dev)
+        tok = batch["tokens"][:4]
+        cache = models.make_cache(small, 4, SHARD_SMALL_SEQ, dev)
+        last, cache = models.prefill(small, model, tok[:, :SHARD_SMALL_PROMPT], cache)
+        steps = [last]
+        for pos in range(SHARD_SMALL_PROMPT, SHARD_SMALL_SEQ):
+            lg, cache = models.decode_step(small, model, tok[:, pos], cache, pos)
+            steps.append(lg)
+        out["serve"] = torch.stack(steps, 1).cpu()
+    save_atomic(torch, out, root / "twin_small.pt")
+    del model, state, cache
+
+    # -- full width: a train step, then a prefill and greedy decode steps
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    model = models.init_params(full, gen(), dev)
+    state = init_train_state(full, model)
+    batch = tensors(shard_batch(np, full.vocab_size, SHARD_TRAIN_ROWS, SHARD_TRAIN_SEQ, 2))
+    step = make_train_step(full, AdamWConfig(**SHARD_FULL_OPT), dp=SHARD_MESH[0],
+                           global_rows=SHARD_TRAIN_ROWS)
+    params = dict(model.named_parameters())
+    before = {k: params[k].detach().clone() for k in SHARD_CHECKED}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, met = step(state, batch)
+    loss = float(met["loss"])
+    report["train_s"] = time.perf_counter() - t0
+    report["train_peak"] = torch.cuda.max_memory_allocated()
+    train = {"grad_norm": float(met["grad_norm"]),
+             "m_norm": {k: float(torch.linalg.vector_norm(state["opt"]["m"][k]))
+                        for k in SHARD_CHECKED},
+             "update_norm": {k: float(torch.linalg.vector_norm(
+                 params[k].detach().float() - before[k].float())) for k in SHARD_CHECKED}}
+    save_atomic(torch, {k: params[k].detach().cpu() for k in SHARD_CHECKED},
+                root / "twin_train.pt")
+    del model, state, step, params, before
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        model = models.init_params(full, gen(), dev)
+        prompt = torch.from_numpy(np.random.default_rng(3).integers(
+            0, full.vocab_size, (SHARD_SERVE_BATCH, SHARD_SERVE_PROMPT))).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        free = shard_serve(torch, models, full, model, prompt, None, dev)
+        torch.cuda.synchronize()
+        report["serve_s"] = time.perf_counter() - t0
+        report["prefill_s"] = free["walls"][0]
+        report["decode_ms"] = [w * 1e3 for w in free["walls"][1:]]
+        fed = free["fed"]
+        # the same calls layer by layer, each sub-layer's input and output kept
+        record = shard_serve(torch, models, full, model, prompt, fed, dev, record=[])
+        if not torch.equal(record["logits"], free["logits"]):
+            raise AssertionError("shard: the layer-by-layer replay gives other logits than "
+                                 "prefill and decode_step")
+    report.update(loss=loss, train=train, dropped=free["dropped"], routed=free["routed"],
+                  launches={**ops.launches, **ops.variant_launches},
+                  peak=torch.cuda.max_memory_allocated())
+    # the card's memory back before the ranks, which wait for this file, lay
+    # the full-width model out
+    del model
+    torch.cuda.empty_cache()
+    save_atomic(torch, {"loss": loss, "train": train, "prompt": prompt.cpu(), "fed": fed.cpu(),
+                        "logits": free["logits"], "routing": free["routing"],
+                        "dropped": free["dropped"], "routed": free["routed"],
+                        "record": record["record"], "record_routing": record["routing"]},
+                root / "twin_full.pt")
+    return report
+
+
+def save_atomic(torch, obj, path: Path) -> None:
+    """``torch.save`` under a temporary name, then a rename: a rank that
+    waits for the file (:func:`wait_for`) never reads it half written."""
+    torch.save(obj, path.with_suffix(".tmp"))
+    os.replace(path.with_suffix(".tmp"), path)
+
+
+def wait_for(torch, path: Path):
+    """``torch.load(path)`` once the twin has written it (at most
+    ``SHARD_TIMEOUT`` seconds)."""
+    deadline = time.monotonic() + SHARD_TIMEOUT
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"shard: {path.name} not written in {SHARD_TIMEOUT} s")
+        time.sleep(0.1)
+    return torch.load(path)
+
+
+def shard_serve(torch, models, cfg, model, prompt, fed, dev, record=None, feed=None,
+                gather=None) -> dict:
+    """A prefill of ``prompt`` and ``SHARD_SERVE_NEW`` decode steps, each
+    fed ``fed[i]`` (or, without ``fed``, the greedy token of the step
+    before). Without ``record`` the calls are ``models.prefill`` and
+    ``models.decode_step``; with it (a list) they run ``forward``'s cache
+    path layer by layer (``transformer._mixer_out`` and ``_ffn_out``, the
+    same ops), each call appending one dict a layer of its sub-layers'
+    inputs and outputs (CPU copies), and with ``feed`` (a twin's record,
+    this rank's rows) each sub-layer and the head take the twin's input
+    instead of the one the call computed. ``gather`` makes a rank's logits
+    and records whole. Returns the logits (f32, on the CPU), the tokens
+    fed, the MoE routing and drop counts, and each call's wall seconds
+    (the card synchronised; a rank's gather of its logits outside)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    whole = gather or (lambda t, rows_only=False: t)
+    cache = models.make_cache(cfg, SHARD_SERVE_BATCH, SHARD_SERVE_PROMPT + SHARD_SERVE_NEW, dev)
+    stats = {"routing": []}
+
+    def call(tokens, pos, n):
+        if record is None:
+            if pos == 0:
+                return models.prefill(cfg, model, tokens, cache, moe_stats=stats)[0]
+            return models.decode_step(cfg, model, tokens, cache, pos, moe_stats=stats)[0]
+        x = T.embed_inputs(cfg, model, tokens if pos == 0 else tokens[:, None])
+        positions = torch.arange(pos, pos + x.shape[1], device=dev)
+        for i, layer in enumerate(model.layers):
+            src = feed[n][i] if feed is not None else None
+            xin = x if src is None else src["x"].to(dev)
+            y = T._mixer_out(cfg, layer, xin, positions, cache[i], pos)
+            mid = xin + y if src is None else src["mid"].to(dev)
+            f, _ = T._ffn_out(cfg, layer, mid, stats)
+            x = mid + f
+            record_n.append({"x": whole(xin, True).cpu(), "y": whole(y, True).cpu(),
+                             "mid": whole(mid, True).cpu(), "f": whole(f, True).cpu()})
+        if feed is not None:
+            x = feed[n][-1]["out"].to(dev)
+        record_n[-1]["out"] = whole(x, True).cpu()
+        logits = T._head(cfg, model, ops.rmsnorm(x, model.final_norm, eps=cfg.norm_eps))
+        return logits[:, -1]
+
+    def timed(tokens, pos, n):
+        t0 = time.perf_counter()
+        out = call(tokens, pos, n)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return whole(out).float().cpu()
+
+    logits, toks, walls = [], [], []
+    record_n = []
+    logits.append(timed(prompt, 0, 0))
+    for i in range(SHARD_SERVE_NEW):
+        if record is not None:
+            record.append(record_n)
+            record_n = []
+        nxt = (fed[i] if fed is not None
+               else torch.argmax(logits[-1][:, :cfg.vocab_size], dim=-1)).to(dev)
+        toks.append(nxt)
+        logits.append(timed(nxt, SHARD_SERVE_PROMPT + i, i + 1))
+    if record is not None:
+        record.append(record_n)
+    return {"logits": torch.stack(logits), "fed": torch.stack(toks), "record": record,
+            "routing": stats["routing"], "dropped": stats["dropped"], "routed": stats["routed"],
+            "walls": walls}
+
+
+def rel_norm(torch, got, want, keep=None) -> float:
+    """||got - want|| / ||want|| in f64 (over ``keep``'s elements where given)."""
+    g, w = got.double(), want.double()
+    if keep is not None:
+        g, w = g[keep], w[keep]
+    return float(torch.linalg.vector_norm(g - w) / max(torch.linalg.vector_norm(w), 1e-30))
+
+
+def shard_state_errors(torch, whole, twin, lr, b1, wd) -> dict:
+    """The small run's gathered state against the twin's: the worst
+    ||got - want|| / ||want|| of a tensor's parameters, m and v. A
+    parameter's elements whose step-1 gradient (m / (1 - b1)) lies under
+    ``SHARD_NEAR_ZERO`` of its tensor's largest are left out of its norm
+    (Adam's normalised step there follows the gradient's last bits, as in
+    the CPU tests) and held to move at most two steps apart."""
+    worst = {"params": 0.0, "m": 0.0, "v": 0.0}
+    for k, want in twin["params"].items():
+        got = whole["params"][k].cpu()
+        g = twin["m"][k].abs() / (1 - b1)
+        free = g <= SHARD_NEAR_ZERO * g.max()
+        if bool(free.any()):
+            apart = float((got[free].double() - want[free].double()).abs().max())
+            if apart > 2 * lr * (1 + wd):
+                raise AssertionError(f"shard: {k}: an ill-conditioned element {apart} apart")
+        worst["params"] = max(worst["params"], rel_norm(torch, got, want, ~free))
+        for key in ("m", "v"):
+            worst[key] = max(worst[key], rel_norm(torch, whole[key][k].cpu(), twin[key][k]))
+    return worst
+
+
+def shard_train_errors(torch, cfg, params, start, state, met, twin, twin_params, mesh) -> dict:
+    """The full-width sharded train step against the twin's: the
+    gradients' global norm, relative; for each of ``SHARD_CHECKED`` its
+    first moment's norm, relative (after one step m = 0.1 g), and its
+    updated parameter element by element, ||got - want|| / ||want -
+    before|| (``update``), each rank comparing its shard of the twin's
+    tensor. Sums of squares are summed over every rank: a tensor
+    replicated over an axis counts each element as often in every sum,
+    which leaves the ratios as they are and is divided out of a norm."""
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import layout, strategy
+
+    world = tuple(mesh.axis_names)
+
+    def total(x):   # a sum over every rank, in f64 on the host
+        return float(C.all_reduce(x.double().reshape(1).cpu(), world, mesh=mesh))
+
+    ospecs = strategy.opt_state_specs(cfg, {k: params[k] for k in SHARD_CHECKED}, mesh)
+    out = {"grad_norm": abs(float(met["grad_norm"]) - twin["grad_norm"]) / twin["grad_norm"],
+           "m_norm": {}, "update": {}}
+    for k in SHARD_CHECKED:
+        held = mesh.axis_size(tuple(a for e in ospecs[k] for a in strategy.axes_of(e)))
+        m = state["opt"]["m"][k].float()
+        norm = math.sqrt(total(torch.sum(m * m)) * held / mesh.axis_size(world))
+        out["m_norm"][k] = abs(norm - twin["m_norm"][k]) / twin["m_norm"][k]
+        spec = strategy.param_spec(cfg, k, params[k].dim(), mesh)
+        want = layout.shard_tensor(twin_params[k], spec, mesh, fused_last=layout.is_fused(k))
+        want = want.to(params[k].device).float()
+        got, was = params[k].detach().float(), start[k].float()
+        out["update"][k] = math.sqrt(total(torch.sum((got - want) ** 2))
+                                     / max(total(torch.sum((want - was) ** 2)), 1e-300))
+    return out
+
+
+def routing_match(torch, got, want, strict: bool = True) -> dict:
+    """The MoE calls' routing of one run against another's: tokens whose
+    top-k set differs, and the (token, expert) pairs kept, compared as
+    token x expert matrices. With ``strict``, calls whose top-k sets agree
+    on every token must keep exactly the same pairs."""
+    swapped = tokens = calls_same = 0
+    by_call = {}
+    for n, ((topi, kept), (wtopi, wkept)) in enumerate(zip(got, want)):
+        same = (topi.sort(-1).values == wtopi.sort(-1).values).all(-1)
+        swapped += int((~same).sum())
+        if not bool(same.all()):
+            by_call[n] = int((~same).sum())
+        tokens += same.numel()
+        e = int(max(topi.max(), wtopi.max())) + 1
+        rows = torch.arange(topi.shape[0])[:, None].expand_as(topi)
+        mat = torch.zeros(topi.shape[0], e, dtype=torch.bool)
+        wmat = torch.zeros_like(mat)
+        mat[rows[kept], topi[kept]] = True
+        wmat[rows[wkept], wtopi[wkept]] = True
+        if bool(same.all()):
+            calls_same += 1
+            if strict and not torch.equal(mat, wmat):
+                raise AssertionError(f"shard: MoE call {n} routes as the twin but keeps "
+                                     f"{int((mat != wmat).sum())} other pairs")
+    if len(got) != len(want):
+        raise AssertionError(f"shard: {len(got)} MoE calls, the twin {len(want)}")
+    return {"calls": len(got), "calls_same_routing": calls_same, "tokens": tokens,
+            "tokens_other_topk": swapped, "other_topk_by_call": by_call}
+
+
+def shard_rank(root: Path, rank: int) -> dict:
+    """One rank of the 2 x 2 mesh (gloo, every rank on ``cuda:0``): the
+    small model under each of ``SHARD_SMALL_CASES`` (a train step, a prefill
+    and decode steps) and the full-width model (a train step with FSDP,
+    then a prefill and 16 decode steps fed the twin's tokens), each held
+    against the twin's results by rank 0; returns the rank's launches,
+    collective counts, walls and peak memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import layout, strategy
+    from repro_torch.sharding.context import mesh_context
+    from repro_torch import models
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(root / "store"), SHARD_WORLD)
+    dist.init_process_group(C.backend_for(dev, ranks_per_card=SHARD_WORLD), store=store,
+                            rank=rank, world_size=SHARD_WORLD)
+    mesh = make_local_mesh(*SHARD_MESH)
+    small, full = shard_cfgs()
+    dpx = strategy.dp_axes(mesh)
+    report = {"rank": rank, "backend": dist.get_backend(), "coords": mesh.coords()}
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SHARD_SEED)
+
+    def local(b):
+        return {k: layout.shard_tensor(torch.from_numpy(v).to(dev), strategy.P(dpx, None), mesh)
+                for k, v in b.items()}
+
+    def gathered(logits):
+        return layout.gather_tensor(logits.float(), strategy.P(dpx, "model"), mesh)
+
+    ops.reset_launches()
+    C.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with mesh_context(mesh):
+        # -- the small model, f32, drop-free
+        twin = wait_for(torch, root / "twin_small.pt")
+        whole_batch = shard_batch(np, small.vocab_size, SHARD_SMALL_ROWS, SHARD_SMALL_SEQ, 1)
+        batch = local(whole_batch)
+        tok = local({"t": whole_batch["tokens"][:4]})["t"]   # the twin serves rows 0-3
+        opt = AdamWConfig(**SMALL_TRAIN_OPT)
+        small_err = {}
+        for fsdp, impl in SHARD_SMALL_CASES:
+            cfg = dataclasses.replace(small, fsdp_params=fsdp, moe_impl=impl)
+            model = layout.init_sharded_params(cfg, gen(), mesh, dev)
+            state = init_train_state(cfg, model)
+            state, met = make_train_step(cfg, opt, dp=SHARD_MESH[0],
+                                         global_rows=SHARD_SMALL_ROWS)(state, batch)
+            whole = layout.gather_train_state(cfg, state, mesh)
+            err = {"loss": abs(float(met["loss"]) - twin["loss"]) / abs(twin["loss"])}
+            err.update(shard_state_errors(torch, whole, twin, twin["lr"], opt.b1,
+                                          opt.weight_decay))
+            with torch.inference_mode():
+                model = layout.init_sharded_params(cfg, gen(), mesh, dev)
+                cache = models.make_cache(cfg, 4, SHARD_SMALL_SEQ, dev)
+                last, cache = models.prefill(cfg, model, tok[:, :SHARD_SMALL_PROMPT], cache)
+                steps = [gathered(last)]
+                for pos in range(SHARD_SMALL_PROMPT, SHARD_SMALL_SEQ):
+                    lg, cache = models.decode_step(cfg, model, tok[:, pos], cache, pos)
+                    steps.append(gathered(lg))
+            err["logits"] = rel_norm(torch, torch.stack(steps, 1).cpu(), twin["serve"])
+            small_err[f"fsdp={fsdp},{impl}"] = err
+            if rank == 0 and max(err.values()) > SHARD_SMALL_TOL:
+                raise AssertionError(f"shard: small {fsdp} {impl}: {err} over "
+                                     f"{SHARD_SMALL_TOL}")
+        report["small"] = small_err
+        del model, state, cache, twin
+
+        # -- full width, bf16: one FSDP train step
+        twin = wait_for(torch, root / "twin_full.pt")
+        cfg = dataclasses.replace(full, fsdp_params=True)
+        model = layout.init_sharded_params(cfg, gen(), mesh, dev)
+        state = init_train_state(cfg, model)
+        batch = local(shard_batch(np, full.vocab_size, SHARD_TRAIN_ROWS, SHARD_TRAIN_SEQ, 2))
+        step = make_train_step(cfg, AdamWConfig(**SHARD_FULL_OPT), dp=SHARD_MESH[0],
+                               global_rows=SHARD_TRAIN_ROWS)
+        params = dict(model.named_parameters())
+        start = {k: params[k].detach().clone() for k in SHARD_CHECKED}
+        before = C.counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        loss = float(met["loss"])
+        report["train_s"] = time.perf_counter() - t0
+        report["train_collectives"] = {k: {kind: v[kind] - before[k][kind] for kind in v}
+                                       if isinstance(v, dict) else v - before[k]
+                                       for k, v in C.counts().items()}
+        report["loss"], report["twin_loss"] = loss, twin["loss"]
+        report["loss_rel"] = abs(loss - twin["loss"]) / abs(twin["loss"])
+        report["train"] = shard_train_errors(torch, cfg, params, start, state, met, twin["train"],
+                                             torch.load(root / "twin_train.pt", mmap=True), mesh)
+        report["train_peak"] = torch.cuda.max_memory_allocated()
+        report["local_params"] = sum(p.numel() for p in model.parameters())
+        del model, state, step, batch, params, start
+        torch.cuda.empty_cache()
+
+        # -- full width: prefill and decode on the TP x DP layout, fed the twin's tokens
+        cfg = dataclasses.replace(full, fsdp_params=False)
+        rows = slice(mesh.axis_index(dpx) * SHARD_SERVE_BATCH // SHARD_MESH[0],
+                     (mesh.axis_index(dpx) + 1) * SHARD_SERVE_BATCH // SHARD_MESH[0])
+
+        def whole(t, rows_only=False):
+            spec = strategy.P(dpx, *([None] * (t.dim() - 1))) if rows_only else \
+                strategy.P(dpx, "model")
+            return layout.gather_tensor(t, spec, mesh)
+
+        with torch.inference_mode():
+            model = layout.init_sharded_params(cfg, gen(), mesh, dev)
+            prompt, fed = twin["prompt"][rows].to(dev), twin["fed"][:, rows].to(dev)
+            before = C.counts()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            free = shard_serve(torch, models, cfg, model, prompt, fed, dev, gather=whole)
+            torch.cuda.synchronize()
+            report["serve_s"] = time.perf_counter() - t0
+            report["prefill_s"] = free["walls"][0]
+            report["decode_ms"] = [w * 1e3 for w in free["walls"][1:]]
+            report["serve_collectives"] = {k: {kind: v[kind] - before[k][kind] for kind in v}
+                                           if isinstance(v, dict) else v - before[k]
+                                           for k, v in C.counts().items()}
+            # each sub-layer and the head on the twin's own inputs
+            feed = [[{k: t[rows] for k, t in sub.items()} for sub in call]
+                    for call in twin["record"]]
+            forced = shard_serve(torch, models, cfg, model, prompt, fed, dev, record=[],
+                                 feed=feed, gather=whole)
+        report["prefill_rel"] = rel_norm(torch, free["logits"][0], twin["logits"][0])
+        report["decode_rel"] = rel_norm(torch, free["logits"][1:], twin["logits"][1:])
+        report["dropped"], report["twin_dropped"] = free["dropped"], twin["dropped"]
+        report["routing"] = routing_match(torch, free["routing"], twin["routing"], strict=False)
+        worst = {"y": 0.0, "f": 0.0}
+        for call, want_call in zip(forced["record"], twin["record"]):
+            for sub, want in zip(call, want_call):
+                for k in worst:
+                    worst[k] = max(worst[k], rel_norm(torch, sub[k], want[k]))
+        worst["logits"] = rel_norm(torch, forced["logits"], twin["logits"])
+        report["forced"] = worst
+        report["forced_routing"] = routing_match(torch, forced["routing"],
+                                                 twin["record_routing"])
+        report["forced_dropped"] = forced["dropped"]
+        report["peak"] = torch.cuda.max_memory_allocated()
+        report["launches"] = {**ops.launches, **ops.variant_launches}
+        report["collectives"] = C.counts()
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        bad = [k for k, v in report["forced"].items() if v > SHARD_FULL_TOL]
+        if report["loss_rel"] > SHARD_FULL_TOL:
+            bad.append("loss_rel")
+        train = report["train"]
+        bad += [f"train {k}" for k in ("grad_norm",) if train[k] > SHARD_TRAIN_TOL[k]]
+        bad += [f"train {key} {k}" for key in ("m_norm", "update")
+                for k, v in train[key].items() if v > SHARD_TRAIN_TOL[key]]
+        r = report["forced_routing"]
+        if r["tokens_other_topk"] > SHARD_SWAP_SHARE * r["tokens"]:
+            bad.append("forced_routing")
+        if bad:
+            raise AssertionError(f"shard: full width {bad} out of bounds: {report}")
+    return report
+
+
+def run_shard_children(args_list, timeout) -> tuple[list[dict], float, int]:
+    """Start ``chip_smoke.py --shard-child`` once for each JSON argument,
+    all at once, polling the card's used memory every 0.25 s; kill the
+    others as soon as one fails, or all at ``timeout``. Returns each
+    child's report (its last output line), the wall seconds and the peak
+    used memory (MiB, every process's)."""
+    import threading
+
+    peak, done = [card_memory_used_mib()], threading.Event()
+
+    def poll():
+        while not done.wait(0.25):
+            peak[0] = max(peak[0], card_memory_used_mib())
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"), "--shard-child", a],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for a in args_list]
+    outs = [("", "")] * len(procs)
+
+    def read(i):
+        outs[i] = procs[i].communicate()
+
+    readers = [threading.Thread(target=read, args=(i,), daemon=True) for i in range(len(procs))]
+    for r in readers:
+        r.start()
+    failed = None
+    try:
+        while any(r.is_alive() for r in readers):
+            if time.perf_counter() - t0 > timeout:
+                failed = f"still running after {timeout} s"
+                break
+            if any(not r.is_alive() and p.returncode for r, p in zip(readers, procs)):
+                failed = "a child failed"
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for r in readers:
+            r.join(30)
+        done.set()
+        poller.join()
+    wall = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    if failed or any(codes):
+        raise AssertionError(f"shard children ({failed or 'exit codes'} {codes}):\n" + "\n".join(
+            f"--- child {i}: {o[0][-3000:]}\n{o[1][-6000:]}" for i, o in enumerate(outs)))
+    return [json.loads(o[0].strip().splitlines()[-1]) for o in outs], wall, peak[0]
+
+
+def card_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def shard_phase(torch) -> dict:
+    """Phase 15: the twin's unsharded runs on the card and four ranks of a
+    2 x 2 mesh sharing the card (``SHARD_WORLD`` interpreters meeting
+    through a ``FileStore``, gloo: NCCL refuses ranks that share a device),
+    the ranks reading the twin's results as it writes them; returns the
+    model kernels' launches summed over the ranks."""
+    import gc
+
+    from repro_torch.sharding import collectives as C
+
+    smi = card_smi()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = HERE / "build" / "chip_smoke_shard"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    small, full = shard_cfgs()
+    log(f"shard: card {smi}; before the phase: this process holds "
+        f"{torch.cuda.memory_allocated()} B, the card {card_memory_used_mib()} MiB used")
+    log(f"shard: {SHARD_WORLD} ranks share cuda:0 as a {SHARD_MESH[0]} x {SHARD_MESH[1]} data x "
+        f"model mesh: backend {C.backend_for('cuda', ranks_per_card=SHARD_WORLD)} (NCCL refuses "
+        "two ranks on one device; gloo moves every collective through host memory)")
+    # the twin and the ranks start together: the ranks' start-up and small
+    # runs overlap the twin's, and they lay the full-width model out only
+    # once the twin has written its results and given the card's memory back
+    args = [json.dumps({"role": "rank", "root": str(root), "rank": r}) for r in range(SHARD_WORLD)]
+    (twin, *reports), wall, peak = run_shard_children(
+        [json.dumps({"role": "twin", "root": str(root)})] + args, SHARD_TIMEOUT)
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"shard: unsharded twin: full-width "
+        f"{full.name} {full.n_layers} layers bf16 train step {twin['train_s']:.3f}s loss "
+        f"{twin['loss']} peak {twin['train_peak']} B; prefill {SHARD_SERVE_BATCH} x "
+        f"{SHARD_SERVE_PROMPT} {twin['prefill_s']:.4f}s + {SHARD_SERVE_NEW} greedy decode "
+        f"steps, ms {[round(x, 3) for x in twin['decode_ms']]}, dropped {twin['dropped']} of "
+        f"{twin['routed']} pairs; train step grad_norm {twin['train']['grad_norm']}, norms of "
+        f"m {twin['train']['m_norm']} and of the update {twin['train']['update_norm']}; "
+        f"launches {twin['launches']}; card {smi}")
+    for rep in reports:
+        log(f"shard: rank {rep['rank']} {rep['coords']} ({rep['backend']}): small f32 "
+            f"{SHARD_SMALL_CASES} errors {rep['small']}; full width train step "
+            f"{rep['train_s']:.3f}s loss {rep['loss']} (twin {rep['twin_loss']}, rel "
+            f"{rep['loss_rel']:.3e}), against the twin's (rel; update: ||got - want|| / "
+            f"||want - before||) {rep['train']} (limits {SHARD_TRAIN_TOL}), local "
+            f"parameters {rep['local_params']}, train peak "
+            f"{rep['train_peak']} B; prefill {rep['prefill_s']:.3f}s, decode ms "
+            f"{[round(x, 3) for x in rep['decode_ms']]}; free-running logits rel (logged, "
+            f"not held) prefill {rep['prefill_rel']:.3e} decode {rep['decode_rel']:.3e}; dropped "
+            f"{rep['dropped']} (twin {rep['twin_dropped']}), routing {rep['routing']}; each "
+            f"sub-layer and the head on the twin's inputs: rel {rep['forced']}, routing "
+            f"{rep['forced_routing']}, dropped {rep['forced_dropped']}; peak {rep['peak']} B; "
+            f"card {smi}")
+        log(f"shard: rank {rep['rank']} collectives: train step {rep['train_collectives']}; "
+            f"serving {rep['serve_collectives']}; whole run {rep['collectives']}; "
+            f"launches {rep['launches']}")
+    kernels = ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    first = reports[0]["launches"]
+    if any(first[k] <= 0 for k in kernels) or any(
+            rep["launches"][k] != first[k] for rep in reports for k in kernels):
+        raise AssertionError("shard: the ranks' launches of "
+                             f"{kernels}: {[rep['launches'] for rep in reports]}")
+    if peak > SHARD_PEAK_MIB:
+        raise AssertionError(f"shard: the card's peak {peak} MiB over {SHARD_PEAK_MIB} MiB")
+    log(f"shard: twin and {SHARD_WORLD} ranks {wall:.1f}s; the card's peak over every process "
+        f"{peak} MiB (limit {SHARD_PEAK_MIB}); every rank launched {kernels} alike; card {smi}")
+    return {k: sum(rep["launches"][k] for rep in reports) for k in first}
+
+
 # The phases ``--only`` can run on their own (after the card and build
 # phases): those that need no other phase's state.
 ONLY_PHASES = ("lint", "kernels", "multihost", "mqo", "examples", "serve", "moe",
-               "mamba", "train")
+               "mamba", "train", "shard")
 
 
 def parse_only(argv) -> tuple[str, ...] | None:
@@ -3394,7 +4091,8 @@ def run_only(torch, np, dp, dev, bw, inst_rate, per_row, only, t_start) -> int:
                       ("serve", lambda: serve_phase(torch, np, dev)),
                       ("moe", lambda: moe_phase(torch, np, dev)),
                       ("mamba", lambda: mamba_phase(torch, np, dev)),
-                      ("train", lambda: train_phase(torch, np, dev, fresh_train_root()))):
+                      ("train", lambda: train_phase(torch, np, dev, fresh_train_root())),
+                      ("shard", lambda: shard_phase(torch))):
         if name in only:
             t_phase = time.perf_counter()
             run()
@@ -3411,6 +4109,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--multihost-child"] and len(sys.argv) == 3:
         return multihost_child(sys.argv[2])
+    if sys.argv[1:2] == ["--shard-child"] and len(sys.argv) == 3:
+        return shard_child(sys.argv[2])
     only = parse_only(sys.argv[1:])
     sys.path.insert(0, str(HERE / "src"))
     import numpy as np
@@ -3641,18 +4341,24 @@ def main() -> int:
     train_launches = train_phase(torch, np, dev, fresh_train_root())
     log(f"phase train {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 15. kernels line -----------------------------------------------------------
+    # -- 15. sharded steps on a mesh of ranks sharing the card -----------------------
+    t_phase = time.perf_counter()
+    shard_launches = shard_phase(torch)
+    log(f"phase shard {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 16. kernels line -----------------------------------------------------------
     # Each kernel reports the times of the case its path's calls take (the
     # data plane's 16.7M-row columns, RMSNorm on the bf16 serving prefill,
     # the flash kernels on the bf16 training shape, the SSD scan on the bf16
     # Mamba-2 serving prefill) and the worst error over all its cases. The
     # model kernels' launches are those of every model path (stablelm
     # serving and its oracle, qwen2-moe and jamba-8L serving and their
-    # oracles, jamba-8L's dense oracle, Mamba-2 serving, long prefill and oracle, training). The residual and the scalar RMSNorm's launches are their
+    # oracles, jamba-8L's dense oracle, Mamba-2 serving, long prefill and oracle, training,
+    # the sharded steps' four ranks). The residual and the scalar RMSNorm's launches are their
     # variants' shares of the RMSNorm count (no model path passes a
     # residual or a row off 16 bytes); the vector RMSNorm's are the rest.
     model_runs = (serve_launches, oracle_launches, *moe_launches, *mamba_launches,
-                  train_launches)
+                  train_launches, shard_launches)
     model_launches = {k: sum(run[k] for run in model_runs) for k in serve_launches}
     model_launches["rmsnorm_residual"] = model_launches.pop("rmsnorm/residual")
     model_launches["rmsnorm_scalar"] = model_launches.pop("rmsnorm/scalar")
@@ -3718,7 +4424,8 @@ def main() -> int:
         f"multi-host path (forked hosts) {mh_launches}; MQO path {mqo_launches}; "
         f"serving {serve_launches}; serving oracle {oracle_launches}; qwen2-moe serving, "
         f"oracle, jamba-8L serving, oracle, dense oracle {moe_launches}; Mamba-2 serving, "
-        f"long prefill, oracle {list(mamba_launches)}; training {train_launches}")
+        f"long prefill, oracle {list(mamba_launches)}; training {train_launches}; sharded "
+        f"(4 ranks) {shard_launches}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

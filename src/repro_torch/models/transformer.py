@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import functools
 import math
+from collections.abc import Callable
 
 import torch
 from torch import nn
@@ -48,6 +49,9 @@ from torch.utils.checkpoint import (
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels import ops
+from ..sharding import collectives as C
+from ..sharding import strategy as S
+from ..sharding.context import get_mesh
 from . import layers as L
 
 MOE_AUX_COEF = 0.01
@@ -120,30 +124,87 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: str | torch.device | None = None) -> Transformer:
+                device: str | torch.device | None = None, *,
+                place: Callable[[str, torch.Tensor], torch.Tensor] | None = None
+                ) -> Transformer:
     """A model on ``device`` (default: the card) with random weights drawn
     from ``generator`` (a generator on that device), at the JAX package's
     scales: normal embeddings and projections scaled by 1/sqrt(fan-in), unit
     norms. The draws are not JAX's threefry bits; parity tests carry weights
-    across with ``convert.params_from_reference``."""
+    across with ``convert.params_from_reference``. ``place(name, tensor)``,
+    where given, replaces each tensor as soon as its layer (or the
+    embedding, the head) is drawn: ``sharding.layout.init_sharded_params``
+    keeps a rank's shard this way, the draws unchanged."""
     check_supported(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, model on {dev}")
     dt, d, gen = L.torch_dtype(cfg), cfg.d_model, generator
+    keep = place or (lambda name, t: t)
+
+    def placed(prefix: str, module: nn.Module) -> nn.Module:
+        with torch.no_grad():
+            for name, p in module.named_parameters():
+                p.data = keep(f"{prefix}.{name}", p.data)
+        return module
+
     ones = lambda: torch.ones(d, dtype=dt, device=dev)  # noqa: E731
-    embed = L.normal(gen, (cfg.vocab_padded, d), 1.0 / math.sqrt(d), dt)
+    embed = keep("embed", L.normal(gen, (cfg.vocab_padded, d), 1.0 / math.sqrt(d), dt))
     layers = []
-    for mixer, mlp in layer_kinds(cfg):
+    for n, (mixer, mlp) in enumerate(layer_kinds(cfg)):
         mix = L.init_attention(cfg, gen) if mixer == "attn" else L.init_ssm(cfg, gen)
         ffn = () if mlp is None else (
             ones(), L.init_moe(cfg, gen) if mlp == "moe" else L.init_mlp(cfg, gen))
-        layers.append(Block(ones(), mix, *ffn))
+        layers.append(placed(f"layers.{n}", Block(ones(), mix, *ffn)))
     lm_head = (None if cfg.tie_embeddings
-               else L.normal(gen, (d, cfg.vocab_padded), 1.0 / math.sqrt(d), dt))
-    adapter = (L.normal(gen, (d, d), 1.0 / math.sqrt(d), dt)
+               else keep("lm_head", L.normal(gen, (d, cfg.vocab_padded), 1.0 / math.sqrt(d), dt)))
+    adapter = (keep("patch_adapter", L.normal(gen, (d, d), 1.0 / math.sqrt(d), dt))
                if cfg.frontend == "vlm" else None)
-    return Transformer(cfg, embed, layers, ones(), lm_head, adapter)
+    return Transformer(cfg, embed, layers, keep("final_norm", ones()), lm_head, adapter)
+
+
+def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """Name → shape of every parameter ``init_params`` makes, without
+    allocating one (the sharding specs and audit of the largest configs
+    read these)."""
+    check_supported(cfg)
+    d, hd, V = cfg.d_model, cfg.head_dim_, cfg.vocab_padded
+    hp, kv = cfg.n_heads_padded, cfg.n_kv_heads
+    out = {"embed": (V, d), "final_norm": (d,)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (d, V)
+    if cfg.frontend == "vlm":
+        out["patch_adapter"] = (d, d)
+
+    def mlp(pre: str, ff: int) -> None:
+        out[f"{pre}.wi"], out[f"{pre}.wo"] = (d, 2 * ff), (ff, d)
+
+    for n, (mixer, ffn) in enumerate(layer_kinds(cfg)):
+        pre = f"layers.{n}"
+        out[f"{pre}.norm1"] = (d,)
+        if ffn is not None:
+            out[f"{pre}.norm2"] = (d,)
+        if mixer == "attn":
+            out.update({f"{pre}.mixer.wq": (d, hp * hd), f"{pre}.mixer.wk": (d, kv * hd),
+                        f"{pre}.mixer.wv": (d, kv * hd), f"{pre}.mixer.wo": (hp * hd, d)})
+        else:
+            di, sn, h, k = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv_kernel
+            shapes = dict(w_z=(d, di), w_x=(d, di), w_bc=(d, 2 * sn), w_dt=(d, h),
+                          conv_x_w=(k, di), conv_x_b=(di,), conv_bc_w=(k, 2 * sn),
+                          conv_bc_b=(2 * sn,), a_log=(h,), d_skip=(h,), dt_bias=(h,),
+                          norm_w=(di,), out_proj=(di, d))
+            out.update({f"{pre}.mixer.{k_}": shapes[k_] for k_ in L.SSM_NAMES})
+        if ffn == "mlp":
+            mlp(f"{pre}.ffn", cfg.d_ff)
+        elif ffn == "moe":
+            e, ffe = cfg.moe_experts_padded, cfg.moe_d_ff
+            out.update({f"{pre}.ffn.router": (d, e), f"{pre}.ffn.w_in": (e, d, 2 * ffe),
+                        f"{pre}.ffn.w_out": (e, ffe, d)})
+            if cfg.moe_shared_experts:
+                mlp(f"{pre}.ffn.shared", cfg.moe_shared_experts * ffe)
+            if cfg.moe_dense_residual:
+                mlp(f"{pre}.ffn.dense", cfg.d_ff)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +217,11 @@ def embed_inputs(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     ``patch_embeds`` (b, patches, d), ``patch_embeds @ patch_adapter`` in
     the model's type prepended (``transformer.py:166``: a prompt carries
     its patches, decode steps none). Other frontends take no patches."""
+    mesh = get_mesh()
+    if mesh is not None:
+        if patch_embeds is not None:
+            raise ValueError(f"{cfg.name}: the vlm frontend does not run on a mesh yet")
+        return _embed_sharded(cfg, params, tokens, mesh)
     x = params.embed[tokens]
     if patch_embeds is None:
         return x
@@ -163,6 +229,51 @@ def embed_inputs(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
         raise ValueError(f"{cfg.name}: the {cfg.frontend!r} frontend takes no patch "
                          "embeddings")
     return torch.cat([patch_embeds.to(x.dtype) @ params.patch_adapter, x], dim=1)
+
+
+def _vocab_part(cfg: ModelConfig, mesh) -> tuple[int, int]:
+    """``(first, count)``: the vocabulary rows (embed) and columns (head)
+    this model rank holds."""
+    count = cfg.vocab_padded // mesh.axis_size("model")
+    return mesh.axis_index("model") * count, count
+
+
+def _embed_sharded(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
+                   mesh) -> torch.Tensor:
+    """The embedding with its rows over ``model``: each rank looks up the
+    tokens its rows hold (zeros for the rest), and the sum over ``model``
+    adds one non-zero row a token."""
+    first, count = _vocab_part(cfg, mesh)
+    embed = L.whole(params.embed, 1, cfg.d_model, mesh)
+    mine = (tokens >= first) & (tokens < first + count)
+    x = embed[torch.where(mine, tokens - first, 0)]
+    return C.reduce_from(torch.where(mine[..., None], x, 0), "model", mesh)
+
+
+def _head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """Logits of the normed final activations (b, s, vocab_padded), -1e9 on
+    the padded vocabulary; on a mesh this rank's columns (b, s, V/tp): the
+    head's columns lie on ``model``, as the reference's ``out_shardings``
+    keep the logits."""
+    mesh, d = get_mesh(), cfg.d_model
+    if mesh is None:
+        first, count = 0, cfg.vocab_padded
+        head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    else:
+        first, count = _vocab_part(cfg, mesh)
+        head = (L.whole(params.embed, 1, d, mesh).T if cfg.tie_embeddings
+                else L.whole(params.lm_head, 0, d, mesh))
+        x = C.copy_to(x, "model", mesh)
+    logits = x @ head.to(x.dtype)
+    if cfg.vocab_padded != cfg.vocab_size:
+        pad = torch.arange(first, first + count, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e9)
+    return logits
+
+
+def _check_mesh(cfg: ModelConfig) -> None:
+    if get_mesh() is not None and cfg.has_mixer("ssm"):
+        raise ValueError(f"{cfg.name}: Mamba-2 layers do not run on a mesh yet")
 
 
 def _mixer_out(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: torch.Tensor,
@@ -261,7 +372,12 @@ def forward(
     records a graph rematerialises each layer under ``cfg.remat_policy``
     (``save_names``: the planner's choice, for ``planner``); with a cache,
     k/v are written at ``cache_pos`` in place and each Mamba-2 layer's state
-    is replaced (s > 1: the state after the prompt, from an empty one)."""
+    is replaced (s > 1: the state after the prompt, from an empty one).
+
+    On a mesh (``sharding.context``) the parameters, tokens and cache are
+    the rank's shards (batch rows over the data axes) and the logits are
+    its vocabulary columns; the MoE's aux is over the global batch."""
+    _check_mesh(cfg)
     x = embed_inputs(cfg, params, tokens, patch_embeds)
     b, s, _ = x.shape
     start = 0 if cache_pos is None else int(cache_pos)
@@ -281,12 +397,7 @@ def forward(
             aux = aux + a
 
     x = ops.rmsnorm(x, params.final_norm, eps=cfg.norm_eps)
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = x @ head.to(x.dtype)
-    if cfg.vocab_padded != cfg.vocab_size:
-        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab_size
-        logits = logits.masked_fill(pad, -1e9)
-    return logits, aux, cache
+    return _head(cfg, params, x), aux, cache
 
 
 # ---------------------------------------------------------------------------
@@ -298,11 +409,14 @@ def lm_loss(cfg: ModelConfig, params: Transformer, batch: dict,
     """Mean next-token NLL over labels >= 0, in f32, plus the z-loss
     ``1e-4·mean(logz²)`` and ``MOE_AUX_COEF·aux / n_layers``, as
     ``transformer.py:233``. Returns ``(total, {"nll", "zloss", "moe_aux",
-    "ntok"})``."""
+    "ntok"})``; on a mesh, the global batch's (:func:`_lm_loss_sharded`)."""
     logits, aux, _ = forward(cfg, params, batch["tokens"],
                              patch_embeds=batch.get("patch_embeds"),
                              save_names=save_names)
     labels = batch["labels"]
+    mesh = get_mesh()
+    if mesh is not None:
+        return _lm_loss_sharded(cfg, logits.float(), labels, aux, mesh)
     logits = logits.float()
     mask = (labels >= 0).float()
     safe = labels.clamp(min=0).long()
@@ -316,13 +430,41 @@ def lm_loss(cfg: ModelConfig, params: Transformer, batch: dict,
     return total, {"nll": loss, "zloss": zloss, "moe_aux": aux, "ntok": ntok}
 
 
+def _lm_loss_sharded(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+                     aux: torch.Tensor, mesh) -> tuple[torch.Tensor, dict]:
+    """:func:`lm_loss` of the global batch from a rank's rows and
+    vocabulary columns: ``logsumexp`` from the maximum and the sum of
+    exponentials over ``model``, the label's logit from the rank that holds
+    it, the token count and the sums over the data axes. The value is the
+    same on every rank; each rank's gradients are its rows' part (the train
+    step sums them over the data axes)."""
+    dpx = S.dp_axes(mesh)
+    first, count = _vocab_part(cfg, mesh)
+    mask = (labels >= 0).float()
+    safe = labels.clamp(min=0).long()
+    top = C.all_reduce(logits.detach().amax(dim=-1), "model", "max", mesh)
+    sumexp = C.reduce_from(torch.exp(logits - top[..., None]).sum(dim=-1), "model", mesh)
+    logz = top + torch.log(sumexp)
+    mine = (safe >= first) & (safe < first + count)
+    ll = torch.gather(logits, -1, torch.where(mine, safe - first, 0)[..., None])[..., 0]
+    ll = C.reduce_from(torch.where(mine, ll, 0), "model", mesh)
+    nll = (logz - ll) * mask
+    ntok = torch.clamp(C.all_reduce(mask.sum(), dpx, mesh=mesh), min=1.0)
+    loss = C.reduce_from(nll.sum(), dpx, mesh) / ntok
+    zloss = 1e-4 * C.reduce_from(torch.sum((logz * mask) ** 2), dpx, mesh) / ntok
+    total = loss + zloss + MOE_AUX_COEF * aux / max(cfg.n_layers, 1)
+    return total, {"nll": loss, "zloss": zloss, "moe_aux": aux, "ntok": ntok}
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: str | torch.device | None = None) -> list[dict]:
     """A zeroed decode cache on ``device`` (default: the card), one entry
     per layer: ``{"k", "v"}`` of (batch, kv, max_len, hd) for attention,
     ``{"conv_x", "conv_bc", "ssm"}`` (``layers.make_ssm_cache``) for
-    Mamba-2."""
+    Mamba-2. On a mesh, this rank's shard under ``strategy.cache_specs``
+    (``batch`` is the global batch)."""
     check_supported(cfg)
+    _check_mesh(cfg)
     dev = resolve_device(device)
     return [L.make_kv_cache(cfg, batch, max_len, dev) if mixer == "attn"
             else L.make_ssm_cache(cfg, batch, dev) for mixer, _ in layer_kinds(cfg)]

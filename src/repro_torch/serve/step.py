@@ -1,6 +1,11 @@
 """Serving steps: batched prefill and single-token decode over the KV
 cache, and a greedy generation loop; the counterpart of
-``repro.serve.step``."""
+``repro.serve.step``.
+
+The steps run on a mesh too (``sharding.context``): the model and the
+cache (``models.make_cache`` under the mesh) are then the rank's shards,
+the tokens its data shard, and the logits come back as its vocabulary
+columns. ``greedy_generate`` runs unsharded."""
 from __future__ import annotations
 
 import torch
@@ -9,6 +14,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..models import Transformer, decode_step as _decode, make_cache
 from ..models import prefill as _prefill
+from ..sharding.context import get_mesh
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -35,6 +41,9 @@ def greedy_generate(cfg: ModelConfig, params: Transformer, prompt: torch.Tensor,
     each the argmax over the real vocabulary; returns the ``max_new`` new
     tokens (b, max_new). Runs on ``device`` (default: the card), where
     ``params`` must lie, under ``torch.inference_mode()``."""
+    if get_mesh() is not None:
+        raise ValueError("greedy_generate runs unsharded: on a mesh the logits are "
+                         "vocabulary shards (use the prefill and decode steps)")
     dev = resolve_device(device)
     if params.embed.device.type != dev.type:
         raise ValueError(f"params lie on {params.embed.device}, generation runs on {dev}")

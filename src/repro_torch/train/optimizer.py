@@ -55,13 +55,17 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(opt: AdamWConfig, params: Mapping[str, torch.Tensor],
-                 grads: Mapping[str, torch.Tensor], state: dict
+                 grads: Mapping[str, torch.Tensor], state: dict,
+                 norm: torch.Tensor | None = None
                  ) -> tuple[Mapping[str, torch.Tensor], dict, dict]:
     """One AdamW step: parameters and moments are updated in place; returns
     ``(params, {"m", "v", "step"}, {"grad_norm", "lr"})`` with the new step
-    count."""
+    count. ``norm`` is the gradients' global norm where the caller holds
+    only shards of them (the sharded train step; default
+    ``global_norm(grads)``); ``params`` may then be views of the
+    parameters, updated through."""
     step = state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if norm is None else norm
     scale = torch.clamp(opt.grad_clip / (gn + 1e-9), max=1.0)
     lr = lr_at(opt, step)
     b1, b2 = opt.b1, opt.b2

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX (nor jaxlib, nor
-``ml_dtypes``, which the card's machine lacks) nor the JAX package, its
+``ml_dtypes``, which the card's machine lacks) nor the JAX package (nor do
+the sharding tests' rank programs, ``test_torch_mesh_ranks.py``), its
 entry points default to the card and refuse to run without one, and on CPU
 tensors it never reaches a CUDA kernel."""
 import ast
@@ -30,6 +31,8 @@ from repro_torch.mv import tableops as T
 from repro_torch.mv import workloads as W
 from repro_torch.mv.partition import partition_table
 from repro_torch.mv.storage import DiskStore
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.sharding.layout import init_sharded_params
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -62,7 +65,10 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     assert {"repro_torch.train.loop", "repro_torch.train.step", "repro_torch.core.planner",
             "repro_torch.checkpoint.ckpt", "repro_torch.data.pipeline",
             "repro_torch.runtime.ft", "repro_torch.launch.train",
-            "repro_torch.kernels.ssd_scan", "repro_torch.mv.multihost"} <= set(mods)
+            "repro_torch.kernels.ssd_scan", "repro_torch.mv.multihost",
+            "repro_torch.sharding.strategy", "repro_torch.sharding.context",
+            "repro_torch.sharding.collectives", "repro_torch.sharding.layout",
+            "repro_torch.sharding.compression", "repro_torch.launch.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -88,7 +94,8 @@ def _imported_roots(path: Path) -> set[str]:
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
-    + ["chip_smoke.py", "tools/sc_trace_torch.py", "tools/sc_lint_torch.py"]
+    + ["chip_smoke.py", "tools/sc_trace_torch.py", "tools/sc_lint_torch.py",
+       "tests/test_torch_mesh_ranks.py"]
     + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("*_torch.py")),
 )
 def test_no_jax_or_repro_import_in_source(path):
@@ -126,6 +133,7 @@ def test_no_jax_or_repro_import_in_source(path):
     lambda tmp: fixtures.forged_threshold_merge(),
     lambda tmp: fixtures.genuine_shared_prefix_merge(),
     lambda tmp: _sc_trace_torch().main(["demo", "--out", str(tmp / "d")]),
+    lambda tmp: init_sharded_params(_SMALL, torch.Generator(), make_production_mesh()),
 ], ids=["realize_workload", "make_base_table", "empty_like", "DiskStore",
         "table_from_numpy", "init_params", "make_cache", "init_params_mamba2",
         "make_cache_mamba2", "greedy_generate",
@@ -134,7 +142,7 @@ def test_no_jax_or_repro_import_in_source(path):
         "run_training", "launch.train", "infer_schemas", "Schema.empty_table",
         "merge_workload", "analyze_workload", "check_merged",
         "forged_threshold_merge", "genuine_shared_prefix_merge",
-        "sc_trace_torch.demo"])
+        "sc_trace_torch.demo", "init_sharded_params"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path,
                                                            monkeypatch):
     # the port asks for a card without initialising CUDA: NVML's count

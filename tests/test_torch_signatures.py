@@ -4,8 +4,10 @@ the JAX package on the CPU.
 ``LoopConfig.log_every``, ``attention_forward(write_cache=)``,
 ``init_mlp(d_ff=)`` and ``make_ssm_cache(dtype=)`` exist in the port with
 the reference's meaning: every parameter (and dataclass field) of these
-reference signatures, and of ``init_moe`` and ``moe_forward``, is in the
-port's with the same default; ``init_mlp``
+reference signatures, and of ``init_moe``, ``moe_forward``, the train
+step's (``make_train_step(dp=)`` included), the sharding strategy's, the
+mesh context's and the meshes', is in the port's with the same default;
+``init_mlp``
 and ``make_ssm_cache`` give the reference's shapes and dtypes;
 ``write_cache``'s cache (the post-RoPE k and v on the cache-less path, the
 cache written in place on the cache path) lies within the model tolerance
@@ -21,14 +23,20 @@ import numpy as np
 import pytest
 import torch
 
+import repro.launch.mesh as jmesh
 import repro.models.layers as jl
 import repro.sharding.compression as jcomp
+import repro.sharding.context as jctx
+import repro.sharding.strategy as jstrat
 import repro.train.loop as jloop
 import repro.train.step as jstep
 from repro import configs as jcfg
 from repro.kernels import dispatch
+import repro_torch.launch.mesh as tmesh
 import repro_torch.models.layers as tl
 import repro_torch.sharding.compression as tcomp
+import repro_torch.sharding.context as tctx
+import repro_torch.sharding.strategy as tstrat
 import repro_torch.train.loop as tloop
 import repro_torch.train.step as tstep
 from repro_torch import configs as tcfg
@@ -55,31 +63,40 @@ def test_every_reference_parameter_is_in_the_port(name):
         assert got[port_name].default == param.default, f"{name}({port_name}=)"
 
 
-# make_train_step(dp=) fixes the data-parallel microbatch split: it comes
-# with the sharding slice of the port.
-WITH_SHARDING = {"dp"}
+MODULES = {"compression": (jcomp, tcomp), "step": (jstep, tstep),
+           "strategy": (jstrat, tstrat), "context": (jctx, tctx), "mesh": (jmesh, tmesh)}
 
 
 @pytest.mark.parametrize("module,name", [
     ("compression", "quantize_int8"), ("compression", "dequantize_int8"),
     ("compression", "ef_compress_tree"), ("compression", "init_error_state"),
-    ("step", "init_train_state"), ("step", "make_train_step")])
+    ("compression", "compressed_psum"),
+    ("step", "init_train_state"), ("step", "make_train_step"),
+    ("step", "train_state_specs"), ("step", "_num_microbatches"),
+    ("strategy", "mesh_axis_sizes"), ("strategy", "dp_axes"), ("strategy", "param_specs"),
+    ("strategy", "opt_state_specs"), ("strategy", "batch_specs"),
+    ("strategy", "cache_specs"), ("strategy", "activation_sharding_constraint"),
+    ("strategy", "audit_divisibility"),
+    ("context", "set_mesh"), ("context", "get_mesh"), ("context", "mesh_context"),
+    ("mesh", "make_production_mesh"), ("mesh", "make_local_mesh"),
+    ("mesh", "required_devices")])
 def test_compression_and_train_step_take_every_reference_parameter(module, name):
-    ref, port = {"compression": (jcomp, tcomp), "step": (jstep, tstep)}[module]
+    """Every parameter of the reference's function is the port's, in the
+    same order and with the same default; the port may add parameters after
+    them (``mesh=`` of ``compressed_psum``, ``reduce_max=`` of
+    ``ef_compress_tree``). ``_num_microbatches``' ``dp`` defaults to 1 in
+    the port."""
+    ref, port = MODULES[module]
     want = inspect.signature(getattr(ref, name)).parameters
     got = inspect.signature(getattr(port, name)).parameters
     for pname, param in want.items():
-        if pname in WITH_SHARDING:
-            assert pname not in got, f"{name}({pname}=)"
-            continue
         assert pname in got, f"{name}: no {pname}"
         default = param.default   # the two packages' AdamWConfig: compare fields
         if dataclasses.is_dataclass(default):
             assert dataclasses.asdict(got[pname].default) == dataclasses.asdict(default)
-        else:
+        elif (name, pname) != ("_num_microbatches", "dp"):
             assert got[pname].default == default, f"{name}({pname}=)"
-    assert list(got)[:len(want) - len(WITH_SHARDING & set(want))] == [
-        p for p in want if p not in WITH_SHARDING], name
+    assert list(got)[:len(want)] == list(want), name
 
 
 def test_loop_config_has_every_reference_field():
