@@ -213,9 +213,8 @@ result line):
              (d_model 5120, 32 over 8 heads of 160, d_ff 13824, vocab
              100352) with its depth cut to 4 layers, the same way (its
              final save too), so the wide bf16 dk/dv kernel runs on a
-             training path. Then mamba2-2.7b at full width (state 128)
-             with its depth cut to 16 of 64 SSD layers (the whole script's
-             limit, since the shard phase joined), the same way: the SSD scan's kernels
+             training path. Then mamba2-2.7b at full width and depth
+             (state 128, 64 SSD layers), the same way: the SSD scan's kernels
              twice a layer (forward and recompute), its backward in PyTorch
              ops, no flash; the profiled step also gives the SSD backward's
              device time by op and its share of the step. Then
@@ -255,12 +254,22 @@ result line):
              steps fed the twin's tokens (their logits' errors logged),
              and the same calls on the twin's own inputs sub-layer by
              sub-layer, the gate (each output and the head within 1e-2,
-             the same routing and dropped pairs); each
-             rank's errors, collective calls and bytes by kind,
-             host-staged bytes, walls, peak memory and launches (RMSNorm
-             and the three flash kernels, the same on every rank) logged,
-             and the card's peak over every process (``nvidia-smi``,
-             within 72 GB);
+             the same routing and dropped pairs). Then the Mamba-2 and
+             hybrid layers on the same mesh: reduced mamba2-2.7b and reduced
+             jamba-v0.1-52b (one pattern of 8 layers) in f32 under FSDP off
+             and on, as the small qwen2-moe cases, and besides
+             ``greedy_generate`` on the mesh (the twin's tokens exactly) and
+             ``elastic_restore`` of the twin's train state checkpoint onto
+             each rank's shards (bitwise); mamba2-2.7b at full width cut to
+             4 layers, bf16 (40 of 80 SSD heads a rank): one FSDP train step
+             held as qwen2-moe's, a prefill of 4 x 512 and 16 decode steps
+             fed the twin's tokens (logits within 1e-2), ``greedy_generate``
+             on the mesh (its tokens against the twin's logged); each
+             rank's errors, collective calls and bytes by kind (the gated
+             norm's gather under its tag), host-staged bytes, walls, peak
+             memory and launches (RMSNorm, the three flash kernels and the
+             SSD scan, the same on every rank) logged, and the card's peak
+             over every process (``nvidia-smi``, within 72 GB);
 16. a JSON line listing every kernel and variant with its launches over
    every path (the multi-host path's also alone: ``multihost_launches``),
    its times (event windows and device alone), its bound and
@@ -477,12 +486,10 @@ TRAIN_SHAPE = (2, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 80, True)  # one microbatch's at
 WIDE_TRAIN_ARCH, WIDE_TRAIN_LAYERS = "stablelm-12b", 4
 WIDE_TRAIN_SHAPE = (2, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 160, True)
 GEMMA_TRAIN_SHAPE = (2, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 256, True)   # gemma-7b's heads
-# Then mamba2-2.7b at full width, its depth cut from 64 SSD layers to 16 (at
-# 64 its run took 53 s of a whole script that reached 1169.7 s on a slow
-# host once the shard phase joined), the same rows, steps and data: the SSD
-# scan's forward kernels under remat and its closed-form backward in
-# PyTorch ops (kernels.ssd_scan.SSDScan).
-MAMBA_TRAIN_ARCH, MAMBA_TRAIN_LAYERS = "mamba2-2.7b", 16
+# Then mamba2-2.7b at full width and depth (64 SSD layers), the same rows,
+# steps and data: the SSD scan's forward kernels under remat and its
+# closed-form backward in PyTorch ops (kernels.ssd_scan.SSDScan).
+MAMBA_TRAIN_ARCH, MAMBA_TRAIN_LAYERS = "mamba2-2.7b", 64
 # SSDScan's gradients held on the card at mamba2-2.7b's training
 # microbatch (2, 4096, 80, 64, 128) and jamba's prefill (4, 512, 128, 64,
 # 16), (b, s, h, p, n).
@@ -580,6 +587,30 @@ SHARD_TRAIN_TOL = {"grad_norm": 2e-3, "m_norm": 2e-3, "update": 0.5}
 SHARD_SWAP_SHARE = 1e-2
 SHARD_PEAK_MIB = int(72e9 / 2**20)    # 72 GB
 SHARD_TIMEOUT = 400.0
+# Then the Mamba-2 and hybrid cases, in the same twin and rank interpreters.
+# Small, f32: reduced mamba2-2.7b (d_model 64, 8 SSD heads of 16, state 16)
+# and reduced jamba-v0.1-52b at one pattern of 8 layers (7 Mamba-2 and 1
+# attention layer, 4 MoE of 8 experts top 2, drop-free), each under FSDP
+# off and on: the small qwen2-moe cases' train step, prefill and decode
+# steps within SHARD_SMALL_TOL of the twin's; greedy_generate on the mesh
+# from the twin's global prompt gives the twin's SHARD_SSM_SMALL_NEW tokens
+# exactly; elastic_restore of the twin's train state (written by
+# CheckpointManager) onto each rank's parameter shards and ZeRO-1 moment
+# parts is bitwise the whole tensors' cut. Full width: mamba2-2.7b at 4 of
+# 64 layers (d_model 2560, d_inner 5120, 80 SSD heads of 64, 40 a rank,
+# state 128, vocabulary 50280 padded to 50304), bf16: one FSDP train step
+# held as the qwen2-moe one (SHARD_TRAIN_TOL on SHARD_MAMBA_CHECKED); a
+# prefill of 4 x 512 tokens and 16 decode steps fed the twin's greedy
+# tokens on the TP x DP layout without FSDP (as the qwen2-moe serve), the
+# logits within SHARD_FULL_TOL of the twin's; greedy_generate on the mesh
+# from the twin's prompt, its tokens against the twin's logged (random
+# weights give near-tied logits).
+SHARD_SSM_SMALL = (("mamba2-2.7b", dict(dtype="float32")),
+                   ("jamba-v0.1-52b", dict(dtype="float32", n_layers=8,
+                                           moe_capacity_factor=16.0)))
+SHARD_SSM_SMALL_NEW = 4
+SHARD_MAMBA_LAYERS = 4
+SHARD_MAMBA_CHECKED = ("embed", "layers.0.mixer.w_x", "layers.0.mixer.norm_w")
 
 
 def log(msg: str) -> None:
@@ -3430,11 +3461,22 @@ def check_finite(torch, name, table):
 # ---------------------------------------------------------------------------
 
 def shard_cfgs():
-    """The small and the full-width configurations of the shard phase."""
+    """The small and the full-width qwen2-moe configurations of the shard
+    phase."""
     from repro_torch import configs
 
     small = configs.get_config(MOE_ARCH).reduced(**SHARD_SMALL)
     full = dataclasses.replace(configs.get_config(MOE_ARCH), n_layers=SHARD_FULL_LAYERS)
+    return small, full
+
+
+def shard_ssm_cfgs():
+    """The small Mamba-2 and hybrid configurations and full-width
+    mamba2-2.7b at ``SHARD_MAMBA_LAYERS`` layers."""
+    from repro_torch import configs
+
+    small = [configs.get_config(arch).reduced(**over) for arch, over in SHARD_SSM_SMALL]
+    full = dataclasses.replace(configs.get_config(MAMBA_ARCH), n_layers=SHARD_MAMBA_LAYERS)
     return small, full
 
 
@@ -3460,10 +3502,96 @@ def shard_child(args) -> int:
     return 0
 
 
+def twin_small(torch, models, cfg, batch, gen, dev, ckpt=None) -> dict:
+    """The twin's run of a small f32 model (its weights from ``gen()``): a
+    train step (dp over the mesh's data axis, ``SHARD_SMALL_ROWS`` global
+    rows), its loss, learning rate, parameters and moments (CPU); with
+    ``ckpt`` that state written there by ``CheckpointManager``; then, on
+    the weights drawn again, a prefill of rows 0-3 and decode steps
+    (``serve``) and, with ``ckpt``, ``SHARD_SSM_SMALL_NEW`` greedy tokens
+    from the prefill's prompt (``greedy``)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.serve import greedy_generate
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    model = models.init_params(cfg, gen(), dev)
+    state = init_train_state(cfg, model)
+    state, met = make_train_step(cfg, AdamWConfig(**SMALL_TRAIN_OPT), dp=SHARD_MESH[0],
+                                 global_rows=SHARD_SMALL_ROWS)(state, batch)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    out = {"loss": float(met["loss"]), "lr": float(met["lr"]),
+           "params": {k: p.cpu() for k, p in params.items()},
+           "m": {k: t.cpu() for k, t in state["opt"]["m"].items()},
+           "v": {k: t.cpu() for k, t in state["opt"]["v"].items()}}
+    if ckpt is not None:
+        CheckpointManager(ckpt).save({"params": params, "opt": state["opt"]}, 1, blocking=True)
+    with torch.inference_mode():
+        model = models.init_params(cfg, gen(), dev)
+        tok = batch["tokens"][:4]
+        cache = models.make_cache(cfg, 4, SHARD_SMALL_SEQ, dev)
+        last, cache = models.prefill(cfg, model, tok[:, :SHARD_SMALL_PROMPT], cache)
+        steps = [last]
+        for pos in range(SHARD_SMALL_PROMPT, SHARD_SMALL_SEQ):
+            lg, cache = models.decode_step(cfg, model, tok[:, pos], cache, pos)
+            steps.append(lg)
+        out["serve"] = torch.stack(steps, 1).cpu()
+        if ckpt is not None:
+            out["greedy"] = greedy_generate(cfg, model, tok[:, :SHARD_SMALL_PROMPT],
+                                            SHARD_SSM_SMALL_NEW, dev).cpu()
+    return out
+
+
+def twin_full_train(torch, np, models, cfg, checked, gen, dev, path: Path):
+    """The twin's full-width train step (one step of ``SHARD_TRAIN_ROWS`` x
+    ``SHARD_TRAIN_SEQ`` tokens at ``SHARD_FULL_OPT``): ``(report, train)``,
+    its wall, peak and loss, and its gradient norm with ``checked``'s
+    first-moment and update norms; ``checked``'s updated parameters saved
+    to ``path``."""
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    model = models.init_params(cfg, gen(), dev)
+    state = init_train_state(cfg, model)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             shard_batch(np, cfg.vocab_size, SHARD_TRAIN_ROWS, SHARD_TRAIN_SEQ, 2).items()}
+    step = make_train_step(cfg, AdamWConfig(**SHARD_FULL_OPT), dp=SHARD_MESH[0],
+                           global_rows=SHARD_TRAIN_ROWS)
+    params = dict(model.named_parameters())
+    before = {k: params[k].detach().clone() for k in checked}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, met = step(state, batch)
+    loss = float(met["loss"])
+    report = {"train_s": time.perf_counter() - t0, "loss": loss,
+              "train_peak": torch.cuda.max_memory_allocated()}
+    train = {"grad_norm": float(met["grad_norm"]),
+             "m_norm": {k: float(torch.linalg.vector_norm(state["opt"]["m"][k]))
+                        for k in checked},
+             "update_norm": {k: float(torch.linalg.vector_norm(
+                 params[k].detach().float() - before[k].float())) for k in checked}}
+    save_atomic(torch, {k: params[k].detach().cpu() for k in checked}, path)
+    del model, state, step, params, before
+    torch.cuda.empty_cache()
+    return report, train
+
+
+def twin_serve_prompt(torch, np, cfg, dev):
+    """The full-width serving prompt (``SHARD_SERVE_BATCH`` x
+    ``SHARD_SERVE_PROMPT`` ids below the vocabulary, seed 3)."""
+    return torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (SHARD_SERVE_BATCH, SHARD_SERVE_PROMPT))).to(dev)
+
+
 def shard_twin(root: Path) -> dict:
     """The port's unsharded runs the ranks are held against, on the card,
-    saved under ``root``: the small model's train step and its prefill and
-    decode steps (``twin_small.pt``), and the full-width model's train step
+    saved under ``root`` in the order the ranks read them: the small
+    qwen2-moe model's train step and its prefill and decode steps
+    (``twin_small.pt``); the small Mamba-2 and hybrid models' the same,
+    their greedy tokens and their train states as checkpoints
+    (``twin_ssm_small.pt``, ``ckpt_<name>/``); full-width mamba2-2.7b's
+    train step and its prefill and 16 greedy decode steps
+    (``twin_mamba.pt``; ``SHARD_MAMBA_CHECKED``'s updated parameters in
+    ``twin_train_mamba.pt``); the full-width qwen2-moe model's train step
     and its prefill and 16 greedy decode steps with their routing
     (``twin_full.pt``; ``SHARD_CHECKED``'s updated parameters in
     ``twin_train.pt``)."""
@@ -3472,70 +3600,51 @@ def shard_twin(root: Path) -> dict:
 
     from repro_torch import models
     from repro_torch.kernels import ops
-    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
     dev = torch.device("cuda")
     small, full = shard_cfgs()
+    ssm_small, mamba = shard_ssm_cfgs()
     report = {}
 
     def gen():
         return torch.Generator(device=dev).manual_seed(SHARD_SEED)
 
-    def tensors(b):
-        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             shard_batch(np, small.vocab_size, SHARD_SMALL_ROWS, SHARD_SMALL_SEQ, 1).items()}
+    # -- the small models (f32, drop-free): a train step, then a prefill and decode
+    save_atomic(torch, twin_small(torch, models, small, batch, gen, dev),
+                root / "twin_small.pt")
+    save_atomic(torch, {cfg.name: twin_small(torch, models, cfg, batch, gen, dev,
+                                             ckpt=root / f"ckpt_{cfg.name}")
+                        for cfg in ssm_small}, root / "twin_ssm_small.pt")
 
-    # -- the small model (f32, drop-free): a train step, then a prefill and decode
-    model = models.init_params(small, gen(), dev)
-    state = init_train_state(small, model)
-    batch = tensors(shard_batch(np, small.vocab_size, SHARD_SMALL_ROWS, SHARD_SMALL_SEQ, 1))
-    state, met = make_train_step(small, AdamWConfig(**SMALL_TRAIN_OPT), dp=SHARD_MESH[0],
-                                 global_rows=SHARD_SMALL_ROWS)(state, batch)
-    out = {"loss": float(met["loss"]), "lr": float(met["lr"]),
-           "params": {k: p.detach().cpu() for k, p in model.named_parameters()},
-           "m": {k: t.cpu() for k, t in state["opt"]["m"].items()},
-           "v": {k: t.cpu() for k, t in state["opt"]["v"].items()}}
-    with torch.inference_mode():
-        model = models.init_params(small, gen(), dev)
-        tok = batch["tokens"][:4]
-        cache = models.make_cache(small, 4, SHARD_SMALL_SEQ, dev)
-        last, cache = models.prefill(small, model, tok[:, :SHARD_SMALL_PROMPT], cache)
-        steps = [last]
-        for pos in range(SHARD_SMALL_PROMPT, SHARD_SMALL_SEQ):
-            lg, cache = models.decode_step(small, model, tok[:, pos], cache, pos)
-            steps.append(lg)
-        out["serve"] = torch.stack(steps, 1).cpu()
-    save_atomic(torch, out, root / "twin_small.pt")
-    del model, state, cache
-
-    # -- full width: a train step, then a prefill and greedy decode steps
+    # -- full-width mamba2-2.7b: a train step, then a prefill and greedy decode steps
     ops.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    model = models.init_params(full, gen(), dev)
-    state = init_train_state(full, model)
-    batch = tensors(shard_batch(np, full.vocab_size, SHARD_TRAIN_ROWS, SHARD_TRAIN_SEQ, 2))
-    step = make_train_step(full, AdamWConfig(**SHARD_FULL_OPT), dp=SHARD_MESH[0],
-                           global_rows=SHARD_TRAIN_ROWS)
-    params = dict(model.named_parameters())
-    before = {k: params[k].detach().clone() for k in SHARD_CHECKED}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, met = step(state, batch)
-    loss = float(met["loss"])
-    report["train_s"] = time.perf_counter() - t0
-    report["train_peak"] = torch.cuda.max_memory_allocated()
-    train = {"grad_norm": float(met["grad_norm"]),
-             "m_norm": {k: float(torch.linalg.vector_norm(state["opt"]["m"][k]))
-                        for k in SHARD_CHECKED},
-             "update_norm": {k: float(torch.linalg.vector_norm(
-                 params[k].detach().float() - before[k].float())) for k in SHARD_CHECKED}}
-    save_atomic(torch, {k: params[k].detach().cpu() for k in SHARD_CHECKED},
-                root / "twin_train.pt")
-    del model, state, step, params, before
+    rep, train = twin_full_train(torch, np, models, mamba, SHARD_MAMBA_CHECKED, gen, dev,
+                                 root / "twin_train_mamba.pt")
+    with torch.inference_mode():
+        model = models.init_params(mamba, gen(), dev)
+        prompt = twin_serve_prompt(torch, np, mamba, dev)
+        torch.cuda.synchronize()
+        free = shard_serve(torch, models, mamba, model, prompt, None, dev)
+    rep.update(prefill_s=free["walls"][0], decode_ms=[w * 1e3 for w in free["walls"][1:]],
+               train=train, launches={**ops.launches, **ops.variant_launches},
+               peak=torch.cuda.max_memory_allocated())
+    report["mamba"] = rep
+    del model
     torch.cuda.empty_cache()
+    save_atomic(torch, {"loss": rep["loss"], "train": train, "prompt": prompt.cpu(),
+                        "fed": free["fed"].cpu(), "logits": free["logits"]},
+                root / "twin_mamba.pt")
+
+    # -- full width qwen2-moe: a train step, then a prefill and greedy decode steps
+    ops.reset_launches()
+    rep, train = twin_full_train(torch, np, models, full, SHARD_CHECKED, gen, dev,
+                                 root / "twin_train.pt")
+    report.update(rep)
     with torch.inference_mode():
         model = models.init_params(full, gen(), dev)
-        prompt = torch.from_numpy(np.random.default_rng(3).integers(
-            0, full.vocab_size, (SHARD_SERVE_BATCH, SHARD_SERVE_PROMPT))).to(dev)
+        prompt = twin_serve_prompt(torch, np, full, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         free = shard_serve(torch, models, full, model, prompt, None, dev)
@@ -3549,15 +3658,15 @@ def shard_twin(root: Path) -> dict:
         if not torch.equal(record["logits"], free["logits"]):
             raise AssertionError("shard: the layer-by-layer replay gives other logits than "
                                  "prefill and decode_step")
-    report.update(loss=loss, train=train, dropped=free["dropped"], routed=free["routed"],
+    report.update(train=train, dropped=free["dropped"], routed=free["routed"],
                   launches={**ops.launches, **ops.variant_launches},
                   peak=torch.cuda.max_memory_allocated())
     # the card's memory back before the ranks, which wait for this file, lay
     # the full-width model out
     del model
     torch.cuda.empty_cache()
-    save_atomic(torch, {"loss": loss, "train": train, "prompt": prompt.cpu(), "fed": fed.cpu(),
-                        "logits": free["logits"], "routing": free["routing"],
+    save_atomic(torch, {"loss": report["loss"], "train": train, "prompt": prompt.cpu(),
+                        "fed": fed.cpu(), "logits": free["logits"], "routing": free["routing"],
                         "dropped": free["dropped"], "routed": free["routed"],
                         "record": record["record"], "record_routing": record["routing"]},
                 root / "twin_full.pt")
@@ -3646,8 +3755,8 @@ def shard_serve(torch, models, cfg, model, prompt, fed, dev, record=None, feed=N
     if record is not None:
         record.append(record_n)
     return {"logits": torch.stack(logits), "fed": torch.stack(toks), "record": record,
-            "routing": stats["routing"], "dropped": stats["dropped"], "routed": stats["routed"],
-            "walls": walls}
+            "routing": stats["routing"], "dropped": stats.get("dropped", 0),
+            "routed": stats.get("routed", 0), "walls": walls}
 
 
 def rel_norm(torch, got, want, keep=None) -> float:
@@ -3680,9 +3789,10 @@ def shard_state_errors(torch, whole, twin, lr, b1, wd) -> dict:
     return worst
 
 
-def shard_train_errors(torch, cfg, params, start, state, met, twin, twin_params, mesh) -> dict:
+def shard_train_errors(torch, cfg, checked, params, start, state, met, twin, twin_params,
+                       mesh) -> dict:
     """The full-width sharded train step against the twin's: the
-    gradients' global norm, relative; for each of ``SHARD_CHECKED`` its
+    gradients' global norm, relative; for each of ``checked`` its
     first moment's norm, relative (after one step m = 0.1 g), and its
     updated parameter element by element, ||got - want|| / ||want -
     before|| (``update``), each rank comparing its shard of the twin's
@@ -3697,10 +3807,10 @@ def shard_train_errors(torch, cfg, params, start, state, met, twin, twin_params,
     def total(x):   # a sum over every rank, in f64 on the host
         return float(C.all_reduce(x.double().reshape(1).cpu(), world, mesh=mesh))
 
-    ospecs = strategy.opt_state_specs(cfg, {k: params[k] for k in SHARD_CHECKED}, mesh)
+    ospecs = strategy.opt_state_specs(cfg, {k: params[k] for k in checked}, mesh)
     out = {"grad_norm": abs(float(met["grad_norm"]) - twin["grad_norm"]) / twin["grad_norm"],
            "m_norm": {}, "update": {}}
-    for k in SHARD_CHECKED:
+    for k in checked:
         held = mesh.axis_size(tuple(a for e in ospecs[k] for a in strategy.axes_of(e)))
         m = state["opt"]["m"][k].float()
         norm = math.sqrt(total(torch.sum(m * m)) * held / mesh.axis_size(world))
@@ -3744,24 +3854,151 @@ def routing_match(torch, got, want, strict: bool = True) -> dict:
             "tokens_other_topk": swapped, "other_topk_by_call": by_call}
 
 
+def collective_delta(after: dict, before: dict) -> dict:
+    """Collective counts (``collectives.counts()``) between two readings."""
+    out = {}
+    for k, v in after.items():
+        if k == "tags":
+            out[k] = {t: {n: c[n] - before[k].get(t, {}).get(n, 0) for n in c}
+                      for t, c in v.items()}
+        elif isinstance(v, dict):
+            out[k] = {kind: v[kind] - before[k][kind] for kind in v}
+        else:
+            out[k] = v - before[k]
+    return out
+
+
+def rank_small(torch, models, cfg, twin, batch, tok, gen, mesh, dev, ckpt=None) -> dict:
+    """One small f32 case on this rank against the twin's
+    (:func:`twin_small`): a train step's loss, and its gathered parameters
+    and moments (:func:`shard_state_errors`); the prefill and decode
+    steps' gathered logits (``logits``). With ``ckpt`` (the twin's state
+    written there), also ``greedy_generate`` on the mesh from the twin's
+    global prompt (``greedy_same``: the twin's tokens exactly) and
+    ``elastic_restore`` of that checkpoint onto this rank's parameter
+    shards and ZeRO-1 moment parts (``restore_bitwise``: each bitwise the
+    whole tensor's cut by ``shard_tensor``, ``zero_slice``; the step)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import elastic_restore
+    from repro_torch.serve import greedy_generate
+    from repro_torch.sharding import layout, strategy
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.train.step import train_state_specs
+
+    opt = AdamWConfig(**SMALL_TRAIN_OPT)
+    model = layout.init_sharded_params(cfg, gen(), mesh, dev)
+    state = init_train_state(cfg, model)
+    state, met = make_train_step(cfg, opt, dp=SHARD_MESH[0],
+                                 global_rows=SHARD_SMALL_ROWS)(state, batch)
+    whole = layout.gather_train_state(cfg, state, mesh)
+    err = {"loss": abs(float(met["loss"]) - twin["loss"]) / abs(twin["loss"])}
+    err.update(shard_state_errors(torch, whole, twin, twin["lr"], opt.b1, opt.weight_decay))
+    checks = {}
+    if ckpt is not None:
+        named = {k: p.detach() for k, p in model.named_parameters()}
+        specs = train_state_specs(cfg, named, mesh)
+        pspec, ospec = specs["params"], specs["opt"]["m"]
+        flat = CheckpointManager(ckpt).restore_flat()
+        got = elastic_restore(flat, {"params": named, "opt": state["opt"]},
+                              layout.named_shardings(specs, mesh))
+        same = torch.equal(got["opt"]["step"].cpu(), flat["opt/step"])
+        for k in named:
+            def cut(t):
+                return layout.shard_tensor(t, pspec[k], mesh, fused_last=layout.is_fused(k))
+            same &= torch.equal(got["params"][k].cpu(), cut(flat[f"params/{k}"]))
+            for key in ("m", "v"):
+                same &= torch.equal(got["opt"][key][k].cpu(), layout.zero_slice(
+                    cut(flat[f"opt/{key}/{k}"]), pspec[k], ospec[k], mesh))
+        checks["restore_bitwise"] = bool(same)
+    with torch.inference_mode():
+        model = layout.init_sharded_params(cfg, gen(), mesh, dev)
+        cache = models.make_cache(cfg, 4, SHARD_SMALL_SEQ, dev)
+        local = layout.shard_tensor(tok, strategy.P(strategy.dp_axes(mesh), None), mesh)
+        last, cache = models.prefill(cfg, model, local[:, :SHARD_SMALL_PROMPT], cache)
+        steps = [shard_logits(last, mesh)]
+        for pos in range(SHARD_SMALL_PROMPT, SHARD_SMALL_SEQ):
+            lg, cache = models.decode_step(cfg, model, local[:, pos], cache, pos)
+            steps.append(shard_logits(lg, mesh))
+        err["logits"] = rel_norm(torch, torch.stack(steps, 1).cpu(), twin["serve"])
+        if ckpt is not None:
+            tokens = greedy_generate(cfg, model, tok[:, :SHARD_SMALL_PROMPT],
+                                     SHARD_SSM_SMALL_NEW, dev)
+            checks["greedy_same"] = torch.equal(tokens.cpu(), twin["greedy"])
+    return err, checks
+
+
+def shard_logits(logits, mesh):
+    """Whole logits (f32) from each rank's rows and vocabulary columns."""
+    from repro_torch.sharding import layout, strategy
+
+    return layout.gather_tensor(logits.float(), strategy.P(strategy.dp_axes(mesh), "model"),
+                                mesh)
+
+
+def rank_full_train(torch, np, cfg, checked, twin, twin_train, gen, mesh, dev) -> dict:
+    """One full-width FSDP train step on this rank against the twin's
+    (:func:`twin_full_train`): its wall, collectives, loss and
+    :func:`shard_train_errors`, peak and local parameter count."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding import layout, strategy
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(cfg, fsdp_params=True)
+    model = layout.init_sharded_params(cfg, gen(), mesh, dev)
+    state = init_train_state(cfg, model)
+    rows = strategy.P(strategy.dp_axes(mesh), None)
+    batch = {k: layout.shard_tensor(torch.from_numpy(v).to(dev), rows, mesh) for k, v in
+             shard_batch(np, cfg.vocab_size, SHARD_TRAIN_ROWS, SHARD_TRAIN_SEQ, 2).items()}
+    step = make_train_step(cfg, AdamWConfig(**SHARD_FULL_OPT), dp=SHARD_MESH[0],
+                           global_rows=SHARD_TRAIN_ROWS)
+    params = dict(model.named_parameters())
+    start = {k: params[k].detach().clone() for k in checked}
+    before = C.counts()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    state, met = step(state, batch)
+    loss = float(met["loss"])
+    rep = {"train_s": time.perf_counter() - t0,
+           "train_collectives": collective_delta(C.counts(), before),
+           "loss": loss, "twin_loss": twin["loss"],
+           "loss_rel": abs(loss - twin["loss"]) / abs(twin["loss"])}
+    rep["train"] = shard_train_errors(torch, cfg, checked, params, start, state, met,
+                                      twin["train"], torch.load(twin_train, mmap=True), mesh)
+    rep["train_peak"] = torch.cuda.max_memory_allocated()
+    rep["local_params"] = sum(p.numel() for p in model.parameters())
+    del model, state, step, batch, params, start
+    torch.cuda.empty_cache()
+    return rep
+
+
 def shard_rank(root: Path, rank: int) -> dict:
     """One rank of the 2 x 2 mesh (gloo, every rank on ``cuda:0``): the
-    small model under each of ``SHARD_SMALL_CASES`` (a train step, a prefill
-    and decode steps) and the full-width model (a train step with FSDP,
-    then a prefill and 16 decode steps fed the twin's tokens), each held
-    against the twin's results by rank 0; returns the rank's launches,
-    collective counts, walls and peak memory."""
+    small qwen2-moe model under each of ``SHARD_SMALL_CASES`` and the small
+    Mamba-2 and hybrid models under FSDP off and on (a train step, a
+    prefill and decode steps; for the latter also greedy generation and an
+    elastic restore); then the full-width qwen2-moe model (a train step
+    with FSDP, then a prefill and 16 decode steps fed the twin's tokens,
+    and the same calls sub-layer by sub-layer on the twin's inputs) and
+    full-width mamba2-2.7b (a train step with FSDP, a prefill and 16
+    decode steps fed the twin's tokens, greedy generation on the mesh),
+    each held against the twin's results by rank 0 (the greedy tokens and
+    restores by every rank); returns the rank's launches, collective
+    counts, walls and peak memory."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.serve import greedy_generate
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding import layout, strategy
     from repro_torch.sharding.context import mesh_context
     from repro_torch import models
-    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
     dev = torch.device("cuda")
     torch.cuda.set_device(0)
@@ -3770,95 +4007,60 @@ def shard_rank(root: Path, rank: int) -> dict:
                             rank=rank, world_size=SHARD_WORLD)
     mesh = make_local_mesh(*SHARD_MESH)
     small, full = shard_cfgs()
+    ssm_small, mamba = shard_ssm_cfgs()
     dpx = strategy.dp_axes(mesh)
     report = {"rank": rank, "backend": dist.get_backend(), "coords": mesh.coords()}
 
     def gen():
         return torch.Generator(device=dev).manual_seed(SHARD_SEED)
 
-    def local(b):
-        return {k: layout.shard_tensor(torch.from_numpy(v).to(dev), strategy.P(dpx, None), mesh)
-                for k, v in b.items()}
+    rows = slice(mesh.axis_index(dpx) * SHARD_SERVE_BATCH // SHARD_MESH[0],
+                 (mesh.axis_index(dpx) + 1) * SHARD_SERVE_BATCH // SHARD_MESH[0])
 
-    def gathered(logits):
-        return layout.gather_tensor(logits.float(), strategy.P(dpx, "model"), mesh)
+    def whole(t, rows_only=False):
+        spec = strategy.P(dpx, *([None] * (t.dim() - 1))) if rows_only else \
+            strategy.P(dpx, "model")
+        return layout.gather_tensor(t, spec, mesh)
 
     ops.reset_launches()
     C.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     with mesh_context(mesh):
-        # -- the small model, f32, drop-free
-        twin = wait_for(torch, root / "twin_small.pt")
+        # -- the small models, f32, drop-free
         whole_batch = shard_batch(np, small.vocab_size, SHARD_SMALL_ROWS, SHARD_SMALL_SEQ, 1)
-        batch = local(whole_batch)
-        tok = local({"t": whole_batch["tokens"][:4]})["t"]   # the twin serves rows 0-3
-        opt = AdamWConfig(**SMALL_TRAIN_OPT)
-        small_err = {}
+        batch = {k: layout.shard_tensor(torch.from_numpy(v).to(dev), strategy.P(dpx, None),
+                                        mesh) for k, v in whole_batch.items()}
+        tok = torch.from_numpy(whole_batch["tokens"][:4]).to(dev)   # the twin serves rows 0-3
+        twin = wait_for(torch, root / "twin_small.pt")
+        report["small"], bad = {}, []
         for fsdp, impl in SHARD_SMALL_CASES:
             cfg = dataclasses.replace(small, fsdp_params=fsdp, moe_impl=impl)
-            model = layout.init_sharded_params(cfg, gen(), mesh, dev)
-            state = init_train_state(cfg, model)
-            state, met = make_train_step(cfg, opt, dp=SHARD_MESH[0],
-                                         global_rows=SHARD_SMALL_ROWS)(state, batch)
-            whole = layout.gather_train_state(cfg, state, mesh)
-            err = {"loss": abs(float(met["loss"]) - twin["loss"]) / abs(twin["loss"])}
-            err.update(shard_state_errors(torch, whole, twin, twin["lr"], opt.b1,
-                                          opt.weight_decay))
-            with torch.inference_mode():
-                model = layout.init_sharded_params(cfg, gen(), mesh, dev)
-                cache = models.make_cache(cfg, 4, SHARD_SMALL_SEQ, dev)
-                last, cache = models.prefill(cfg, model, tok[:, :SHARD_SMALL_PROMPT], cache)
-                steps = [gathered(last)]
-                for pos in range(SHARD_SMALL_PROMPT, SHARD_SMALL_SEQ):
-                    lg, cache = models.decode_step(cfg, model, tok[:, pos], cache, pos)
-                    steps.append(gathered(lg))
-            err["logits"] = rel_norm(torch, torch.stack(steps, 1).cpu(), twin["serve"])
-            small_err[f"fsdp={fsdp},{impl}"] = err
-            if rank == 0 and max(err.values()) > SHARD_SMALL_TOL:
-                raise AssertionError(f"shard: small {fsdp} {impl}: {err} over "
-                                     f"{SHARD_SMALL_TOL}")
-        report["small"] = small_err
-        del model, state, cache, twin
+            err, _ = rank_small(torch, models, cfg, twin, batch, tok, gen, mesh, dev)
+            report["small"][f"fsdp={fsdp},{impl}"] = err
+        twin = wait_for(torch, root / "twin_ssm_small.pt")
+        for base in ssm_small:
+            for fsdp in (False, True):
+                cfg = dataclasses.replace(base, fsdp_params=fsdp)
+                err, checks = rank_small(torch, models, cfg, twin[base.name], batch, tok, gen,
+                                         mesh, dev, ckpt=root / f"ckpt_{base.name}")
+                report["small"][f"{base.name},fsdp={fsdp}"] = dict(err, **checks)
+                bad += [f"{base.name} fsdp={fsdp} {k}" for k, ok in checks.items() if not ok]
+        if bad:   # every rank holds these
+            raise AssertionError(f"shard: rank {rank}: {bad}")
+        if rank == 0:
+            over = {k: e for k, e in report["small"].items()
+                    if max(v for v in e.values() if not isinstance(v, bool)) > SHARD_SMALL_TOL}
+            if over:
+                raise AssertionError(f"shard: small {over} over {SHARD_SMALL_TOL}")
+        del twin
 
         # -- full width, bf16: one FSDP train step
         twin = wait_for(torch, root / "twin_full.pt")
-        cfg = dataclasses.replace(full, fsdp_params=True)
-        model = layout.init_sharded_params(cfg, gen(), mesh, dev)
-        state = init_train_state(cfg, model)
-        batch = local(shard_batch(np, full.vocab_size, SHARD_TRAIN_ROWS, SHARD_TRAIN_SEQ, 2))
-        step = make_train_step(cfg, AdamWConfig(**SHARD_FULL_OPT), dp=SHARD_MESH[0],
-                               global_rows=SHARD_TRAIN_ROWS)
-        params = dict(model.named_parameters())
-        start = {k: params[k].detach().clone() for k in SHARD_CHECKED}
-        before = C.counts()
-        torch.cuda.synchronize()
-        dist.barrier()
-        t0 = time.perf_counter()
-        state, met = step(state, batch)
-        loss = float(met["loss"])
-        report["train_s"] = time.perf_counter() - t0
-        report["train_collectives"] = {k: {kind: v[kind] - before[k][kind] for kind in v}
-                                       if isinstance(v, dict) else v - before[k]
-                                       for k, v in C.counts().items()}
-        report["loss"], report["twin_loss"] = loss, twin["loss"]
-        report["loss_rel"] = abs(loss - twin["loss"]) / abs(twin["loss"])
-        report["train"] = shard_train_errors(torch, cfg, params, start, state, met, twin["train"],
-                                             torch.load(root / "twin_train.pt", mmap=True), mesh)
-        report["train_peak"] = torch.cuda.max_memory_allocated()
-        report["local_params"] = sum(p.numel() for p in model.parameters())
-        del model, state, step, batch, params, start
-        torch.cuda.empty_cache()
+        report.update(rank_full_train(torch, np, full, SHARD_CHECKED, twin,
+                                      root / "twin_train.pt", gen, mesh, dev))
 
         # -- full width: prefill and decode on the TP x DP layout, fed the twin's tokens
         cfg = dataclasses.replace(full, fsdp_params=False)
-        rows = slice(mesh.axis_index(dpx) * SHARD_SERVE_BATCH // SHARD_MESH[0],
-                     (mesh.axis_index(dpx) + 1) * SHARD_SERVE_BATCH // SHARD_MESH[0])
-
-        def whole(t, rows_only=False):
-            spec = strategy.P(dpx, *([None] * (t.dim() - 1))) if rows_only else \
-                strategy.P(dpx, "model")
-            return layout.gather_tensor(t, spec, mesh)
-
         with torch.inference_mode():
             model = layout.init_sharded_params(cfg, gen(), mesh, dev)
             prompt, fed = twin["prompt"][rows].to(dev), twin["fed"][:, rows].to(dev)
@@ -3871,9 +4073,7 @@ def shard_rank(root: Path, rank: int) -> dict:
             report["serve_s"] = time.perf_counter() - t0
             report["prefill_s"] = free["walls"][0]
             report["decode_ms"] = [w * 1e3 for w in free["walls"][1:]]
-            report["serve_collectives"] = {k: {kind: v[kind] - before[k][kind] for kind in v}
-                                           if isinstance(v, dict) else v - before[k]
-                                           for k, v in C.counts().items()}
+            report["serve_collectives"] = collective_delta(C.counts(), before)
             # each sub-layer and the head on the twin's own inputs
             feed = [[{k: t[rows] for k, t in sub.items()} for sub in call]
                     for call in twin["record"]]
@@ -3894,18 +4094,53 @@ def shard_rank(root: Path, rank: int) -> dict:
                                                  twin["record_routing"])
         report["forced_dropped"] = forced["dropped"]
         report["peak"] = torch.cuda.max_memory_allocated()
+        del model, twin, free, forced, feed
+        torch.cuda.empty_cache()
+
+        # -- full-width mamba2-2.7b, bf16: one FSDP train step
+        twin = wait_for(torch, root / "twin_mamba.pt")
+        mrep = rank_full_train(torch, np, mamba, SHARD_MAMBA_CHECKED, twin,
+                               root / "twin_train_mamba.pt", gen, mesh, dev)
+        # -- prefill and decode on the TP x DP layout fed the twin's tokens, then
+        # greedy_generate on the mesh from the global prompt
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(mamba, fsdp_params=False)
+        with torch.inference_mode():
+            model = layout.init_sharded_params(cfg, gen(), mesh, dev)
+            prompt, fed = twin["prompt"][rows].to(dev), twin["fed"][:, rows].to(dev)
+            before = C.counts()
+            torch.cuda.synchronize()
+            dist.barrier()
+            forced = shard_serve(torch, models, cfg, model, prompt, fed, dev, gather=whole)
+            mrep["serve_collectives"] = collective_delta(C.counts(), before)
+            mrep["prefill_s"] = forced["walls"][0]
+            mrep["decode_ms"] = [w * 1e3 for w in forced["walls"][1:]]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens = greedy_generate(cfg, model, twin["prompt"].to(dev), SHARD_SERVE_NEW, dev)
+            torch.cuda.synchronize()
+            mrep["greedy_s"] = time.perf_counter() - t0
+        mrep["logits_rel"] = rel_norm(torch, forced["logits"], twin["logits"])
+        mrep["prefill_rel"] = rel_norm(torch, forced["logits"][0], twin["logits"][0])
+        mrep["greedy_same_tokens"] = int((tokens.cpu() == twin["fed"].T).sum())
+        mrep["greedy_tokens"] = tokens.numel()
+        mrep["peak"] = torch.cuda.max_memory_allocated()
+        report["mamba"] = mrep
         report["launches"] = {**ops.launches, **ops.variant_launches}
         report["collectives"] = C.counts()
     dist.barrier()
     dist.destroy_process_group()
     if rank == 0:
         bad = [k for k, v in report["forced"].items() if v > SHARD_FULL_TOL]
-        if report["loss_rel"] > SHARD_FULL_TOL:
-            bad.append("loss_rel")
-        train = report["train"]
-        bad += [f"train {k}" for k in ("grad_norm",) if train[k] > SHARD_TRAIN_TOL[k]]
-        bad += [f"train {key} {k}" for key in ("m_norm", "update")
-                for k, v in train[key].items() if v > SHARD_TRAIN_TOL[key]]
+        for label, rep in (("", report), ("mamba ", report["mamba"])):
+            if rep["loss_rel"] > SHARD_FULL_TOL:
+                bad.append(f"{label}loss_rel")
+            train = rep["train"]
+            bad += [f"{label}train {k}" for k in ("grad_norm",) if train[k] > SHARD_TRAIN_TOL[k]]
+            bad += [f"{label}train {key} {k}" for key in ("m_norm", "update")
+                    for k, v in train[key].items() if v > SHARD_TRAIN_TOL[key]]
+        if report["mamba"]["logits_rel"] > SHARD_FULL_TOL:
+            bad.append("mamba logits_rel")
         r = report["forced_routing"]
         if r["tokens_other_topk"] > SHARD_SWAP_SHARE * r["tokens"]:
             bad.append("forced_routing")
@@ -3992,6 +4227,7 @@ def shard_phase(torch) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     small, full = shard_cfgs()
+    mamba = shard_ssm_cfgs()[1]
     log(f"shard: card {smi}; before the phase: this process holds "
         f"{torch.cuda.memory_allocated()} B, the card {card_memory_used_mib()} MiB used")
     log(f"shard: {SHARD_WORLD} ranks share cuda:0 as a {SHARD_MESH[0]} x {SHARD_MESH[1]} data x "
@@ -4012,6 +4248,14 @@ def shard_phase(torch) -> dict:
         f"{twin['routed']} pairs; train step grad_norm {twin['train']['grad_norm']}, norms of "
         f"m {twin['train']['m_norm']} and of the update {twin['train']['update_norm']}; "
         f"launches {twin['launches']}; card {smi}")
+    tm = twin["mamba"]
+    log(f"shard: unsharded twin: full-width {mamba.name} {mamba.n_layers} layers bf16 train "
+        f"step {tm['train_s']:.3f}s loss {tm['loss']} peak {tm['train_peak']} B, grad_norm "
+        f"{tm['train']['grad_norm']}, norms of m {tm['train']['m_norm']} and of the update "
+        f"{tm['train']['update_norm']}; prefill {SHARD_SERVE_BATCH} x {SHARD_SERVE_PROMPT} "
+        f"{tm['prefill_s']:.4f}s + {SHARD_SERVE_NEW} greedy decode steps, ms "
+        f"{[round(x, 3) for x in tm['decode_ms']]}; peak {tm['peak']} B; launches "
+        f"{tm['launches']}; card {smi}")
     for rep in reports:
         log(f"shard: rank {rep['rank']} {rep['coords']} ({rep['backend']}): small f32 "
             f"{SHARD_SMALL_CASES} errors {rep['small']}; full width train step "
@@ -4029,7 +4273,19 @@ def shard_phase(torch) -> dict:
         log(f"shard: rank {rep['rank']} collectives: train step {rep['train_collectives']}; "
             f"serving {rep['serve_collectives']}; whole run {rep['collectives']}; "
             f"launches {rep['launches']}")
-    kernels = ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        m = rep["mamba"]
+        log(f"shard: rank {rep['rank']} {mamba.name} {mamba.n_layers} layers: FSDP train step "
+            f"{m['train_s']:.3f}s loss {m['loss']} (twin {m['twin_loss']}, rel "
+            f"{m['loss_rel']:.3e}), against the twin's {m['train']} (limits "
+            f"{SHARD_TRAIN_TOL}), local parameters {m['local_params']}, train peak "
+            f"{m['train_peak']} B; prefill {m['prefill_s']:.3f}s, decode ms "
+            f"{[round(x, 3) for x in m['decode_ms']]} fed the twin's tokens: logits rel "
+            f"{m['logits_rel']:.3e} (prefill {m['prefill_rel']:.3e}; limit {SHARD_FULL_TOL}); "
+            f"greedy_generate on the mesh {m['greedy_s']:.3f}s, {m['greedy_same_tokens']} of "
+            f"{m['greedy_tokens']} tokens the twin's (logged); serve peak {m['peak']} B; "
+            f"collectives: train step {m['train_collectives']}; serving (the gated norm's "
+            f"gather under tags) {m['serve_collectives']}; card {smi}")
+    kernels = ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ssd_scan")
     first = reports[0]["launches"]
     if any(first[k] <= 0 for k in kernels) or any(
             rep["launches"][k] != first[k] for rep in reports for k in kernels):

@@ -20,7 +20,10 @@ than the whole, ``cfg.fsdp_params``) is gathered over the data axes before
 use by ``gather_from``, whose backward reduce-scatters its gradient.
 Gradients that come out of a layer are therefore whole over ``model`` and
 partial over the data axes: the train step sums those of the weights not
-FSDP-gathered. Mamba-2 layers do not run on a mesh yet.
+FSDP-gathered. The Mamba-2 mixer splits its SSD heads over ``model``
+(:func:`ssm_forward`): column-parallel w_z / w_x and the x conv, the scan
+on the local heads, a gated norm over the gathered d_inner, row-parallel
+out_proj.
 """
 from __future__ import annotations
 
@@ -195,6 +198,14 @@ def whole(w: torch.Tensor, dim: int, size: int, mesh) -> torch.Tensor:
     return C.gather_from(w, dp, dim, mesh)
 
 
+def local_rows(batch: int, mesh) -> int:
+    """A data rank's rows of a global batch (``strategy.batch_specs``)."""
+    dp = mesh.axis_size(S.dp_axes(mesh))
+    if batch % dp:
+        raise ValueError(f"a batch of {batch} does not split over {dp} data ranks")
+    return batch // dp
+
+
 def row_parallel(a: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
     """``a @ w`` where each ``model`` rank holds a slice of the contracted
     dimension: the partial products in f32, summed over ``model``, rounded
@@ -227,15 +238,12 @@ def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     dt = dtype or torch_dtype(cfg)
     kv, mesh = cfg.n_kv_heads, get_mesh()
     if mesh is not None:
-        dp = mesh.axis_size(S.dp_axes(mesh))
-        if batch % dp:
-            raise ValueError(f"a batch of {batch} does not split over {dp} data ranks")
         if S.kv_shardable(cfg, mesh):
             kv //= mesh.axis_size("model")
         elif cfg.shard_cache_seq:
             raise ValueError(f"{cfg.name}: the sequence-split cache (shard_cache_seq) "
                              "does not run on a mesh yet")
-        batch //= dp
+        batch = local_rows(batch, mesh)
     shape = (batch, kv, max_len, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -581,16 +589,79 @@ def make_ssm_cache(cfg: ModelConfig, batch: int, device: torch.device,
     """A zeroed Mamba-2 decode state: the last k - 1 inputs of each conv
     (``conv_x`` (batch, k-1, d_inner), ``conv_bc`` (batch, k-1, 2n)) and the
     f32 SSD state ``ssm`` (batch, h, head_dim, n); the convs' inputs in
-    ``dtype`` (default the model dtype)."""
+    ``dtype`` (default the model dtype). On a mesh, this rank's shard under
+    ``strategy.cache_specs``: its data rows, ``conv_x`` on its d_inner
+    columns and ``ssm`` on its heads (:func:`ssm_heads`), ``conv_bc``
+    whole."""
     dt = dtype or torch_dtype(cfg)
-    di, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    n, mesh = cfg.ssm_state, get_mesh()
+    h = ssm_heads(cfg, mesh)[1]
+    if mesh is not None:
+        batch = local_rows(batch, mesh)
     k1 = cfg.ssm_conv_kernel - 1
     return {
-        "conv_x": torch.zeros((batch, k1, di), dtype=dt, device=device),
+        "conv_x": torch.zeros((batch, k1, h * cfg.ssm_head_dim), dtype=dt, device=device),
         "conv_bc": torch.zeros((batch, k1, 2 * n), dtype=dt, device=device),
         "ssm": torch.zeros((batch, h, cfg.ssm_head_dim, n), dtype=torch.float32,
                            device=device),
     }
+
+
+def ssm_heads(cfg: ModelConfig, mesh) -> tuple[int, int]:
+    """``(first, count)``: the SSD heads this rank computes. Without a mesh,
+    all of them; on one, ``[r·h/tp, (r+1)·h/tp)`` for model rank r, which
+    are the d_inner columns ``[first·hd, (first + count)·hd)`` that its
+    w_z / w_x / conv_x shards hold (d_inner is head-major) and the
+    heads of its a_log / d_skip / dt_bias shards. Heads that do not divide
+    over ``model`` (which the reference replicates) are refused."""
+    h = cfg.ssm_heads
+    if mesh is None:
+        return 0, h
+    tp = mesh.axis_size("model")
+    if h % tp:
+        raise ValueError(f"{cfg.name}: {h} SSD heads do not split {tp} ways over 'model' "
+                         "(ssm_heads % tp != 0: the port does not replicate them)")
+    return mesh.axis_index("model") * (h // tp), h // tp
+
+
+def _ssm_shards(p: SSM, x: torch.Tensor, mesh):
+    """``(x, (w_z, w_x, w_bc, w_dt, conv_bc_w, conv_bc_b, out_proj))``: the
+    input and the weights :func:`ssm_forward` runs on. Without a mesh, x
+    and the whole weights. On a mesh, x through ``copy_to`` (every product
+    below uses it in part); w_z, w_x and out_proj the rank's d_inner
+    columns and rows; w_bc, w_dt and the B/C conv whole on every model rank
+    but used only for the rank's heads, so through ``copy_to`` (their
+    gradients summed over ``model``); FSDP weights gathered
+    (:func:`whole`)."""
+    ws = (p.w_z, p.w_x, p.w_bc, p.w_dt, p.conv_bc_w, p.conv_bc_b, p.out_proj)
+    if mesh is None:
+        return x, ws
+    d = x.shape[-1]
+    w_z, w_x, w_bc, w_dt = (whole(w, 0, d, mesh) for w in ws[:4])
+    w_bc, w_dt, conv_bc_w, conv_bc_b = (C.copy_to(w, "model", mesh)
+                                        for w in (w_bc, w_dt, p.conv_bc_w, p.conv_bc_b))
+    return C.copy_to(x, "model", mesh), (w_z, w_x, w_bc, w_dt, conv_bc_w, conv_bc_b,
+                                         whole(p.out_proj, 1, d, mesh))
+
+
+def _gated_norm(cfg: ModelConfig, g: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """RMSNorm of the gated product g (b, s, d_inner) with norm_w, over the
+    whole d_inner. On a mesh a rank holds d_inner/tp columns of g, and a
+    norm over them alone would divide by the wrong mean of squares without
+    an error: g is gathered over ``model`` (``gather_from``, whose backward
+    reduce-scatters the whole row's gradient; its bytes are counted under
+    the tag ``gated_norm``), the RMSNorm kernel runs on whole rows, bitwise
+    the unsharded norm, and the rank keeps its columns. norm_w is whole on
+    every rank (the strategy replicates every ``*norm*`` tensor, as the
+    reference's rule does before its SSM rules) and used in part, so it
+    enters through ``copy_to``."""
+    if mesh is None:
+        return ops.rmsnorm(g, w, eps=cfg.norm_eps)
+    di = g.shape[-1]
+    rows = C.gather_from(g, "model", g.dim() - 1, mesh, tag="gated_norm").contiguous()
+    full = ops.rmsnorm(rows, C.copy_to(w, "model", mesh), eps=cfg.norm_eps)
+    first = mesh.axis_index("model") * di
+    return full[..., first:first + di]
 
 
 def ssm_forward(
@@ -609,13 +680,23 @@ def ssm_forward(
     The casts are the reference's: a prefill's dt in the model's type
     before the scan, a decode step's in f32; d_skip·x added in f32 and cast;
     the gate ``y ⊙ silu(z)`` in the model's type before the RMSNorm over
-    d_inner."""
+    d_inner.
+
+    On a mesh the same body runs on the rank's SSD heads (:func:`ssm_heads`,
+    :func:`_ssm_shards`): z, x and its conv on the rank's d_inner columns,
+    B, C and dt computed whole and dt cut to the rank's heads, the scan (and
+    on the card its kernel) and the decode recurrence on those heads, the
+    gated norm over the gathered d_inner (:func:`_gated_norm`) and out_proj
+    row-parallel; the cache is the rank's shard (:func:`make_ssm_cache`)."""
     b, s, _ = x.shape
-    di, n, h, hd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z = x @ p.w_z                                             # (b, s, di)
-    xr = x @ p.w_x                                            # (b, s, di)
-    bc = x @ p.w_bc                                           # (b, s, 2n)
-    dt_raw = x @ p.w_dt                                       # (b, s, h)
+    n, hd, mesh = cfg.ssm_state, cfg.ssm_head_dim, get_mesh()
+    first, h = ssm_heads(cfg, mesh)
+    di = h * hd
+    x, (w_z, w_x, w_bc, w_dt, conv_bc_w, conv_bc_b, out_proj) = _ssm_shards(p, x, mesh)
+    z = x @ w_z                                               # (b, s, di)
+    xr = x @ w_x                                              # (b, s, di)
+    bc = x @ w_bc                                             # (b, s, 2n)
+    dt_raw = (x @ w_dt)[..., first:first + h]                 # (b, s, h)
     a = -torch.exp(p.a_log)                                   # (h,)
 
     new_cache = cache
@@ -625,8 +706,8 @@ def ssm_forward(
         hist_bc = torch.cat([cache["conv_bc"], bc], dim=1)
         cx = torch.einsum("bkc,kc->bc", hist_x.float(), p.conv_x_w.float()) \
             + p.conv_x_b.float()
-        cbc = torch.einsum("bkc,kc->bc", hist_bc.float(), p.conv_bc_w.float()) \
-            + p.conv_bc_b.float()
+        cbc = torch.einsum("bkc,kc->bc", hist_bc.float(), conv_bc_w.float()) \
+            + conv_bc_b.float()
         cx, cbc = F.silu(cx), F.silu(cbc)
         xt = cx.reshape(b, h, hd)                             # (b, h, hd)
         bmat, cmat = cbc[:, :n], cbc[:, n:]
@@ -640,7 +721,7 @@ def ssm_forward(
         new_cache = {"conv_x": hist_x[:, 1:], "conv_bc": hist_bc[:, 1:], "ssm": hstate}
     else:
         cx = F.silu(_causal_depthwise_conv(xr, p.conv_x_w, p.conv_x_b).float()).to(x.dtype)
-        cbc = F.silu(_causal_depthwise_conv(bc, p.conv_bc_w, p.conv_bc_b).float()).to(x.dtype)
+        cbc = F.silu(_causal_depthwise_conv(bc, conv_bc_w, conv_bc_b).float()).to(x.dtype)
         xin = cx.reshape(b, s, h, hd)
         bmat, cmat = cbc[..., :n], cbc[..., n:]               # strided views
         dtv = F.softplus(dt_raw.float() + p.dt_bias).to(x.dtype)
@@ -652,8 +733,8 @@ def ssm_forward(
         y = y + (p.d_skip[None, None, :, None] * xin.float()).to(x.dtype)
         y = y.reshape(b, s, di)
 
-    y = ops.rmsnorm(y * F.silu(z.float()).to(x.dtype), p.norm_w, eps=cfg.norm_eps)
-    return y @ p.out_proj, new_cache
+    y = _gated_norm(cfg, y * F.silu(z.float()).to(x.dtype), p.norm_w, mesh)
+    return (y @ out_proj if mesh is None else row_parallel(y, out_proj, mesh)), new_cache
 
 
 def _ssm_state_after_prefill(cfg: ModelConfig, xr: torch.Tensor, bc: torch.Tensor,

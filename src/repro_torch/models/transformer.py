@@ -271,11 +271,6 @@ def _head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Tenso
     return logits
 
 
-def _check_mesh(cfg: ModelConfig) -> None:
-    if get_mesh() is not None and cfg.has_mixer("ssm"):
-        raise ValueError(f"{cfg.name}: Mamba-2 layers do not run on a mesh yet")
-
-
 def _mixer_out(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: torch.Tensor,
                cache: dict | None = None, cache_pos: int | None = None) -> torch.Tensor:
     """The mixer on ``rmsnorm(x)``. A Mamba-2 layer's cache entry gets the
@@ -376,8 +371,8 @@ def forward(
 
     On a mesh (``sharding.context``) the parameters, tokens and cache are
     the rank's shards (batch rows over the data axes) and the logits are
-    its vocabulary columns; the MoE's aux is over the global batch."""
-    _check_mesh(cfg)
+    its vocabulary columns; the MoE's aux is over the global batch. Every
+    layer kind runs there: attention, Mamba-2, dense MLPs and MoE."""
     x = embed_inputs(cfg, params, tokens, patch_embeds)
     b, s, _ = x.shape
     start = 0 if cache_pos is None else int(cache_pos)
@@ -464,7 +459,6 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
     Mamba-2. On a mesh, this rank's shard under ``strategy.cache_specs``
     (``batch`` is the global batch)."""
     check_supported(cfg)
-    _check_mesh(cfg)
     dev = resolve_device(device)
     return [L.make_kv_cache(cfg, batch, max_len, dev) if mixer == "attn"
             else L.make_ssm_cache(cfg, batch, dev) for mixer, _ in layer_kinds(cfg)]

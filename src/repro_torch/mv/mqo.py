@@ -53,6 +53,7 @@ operators on their inputs' device.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
 import hashlib
 
@@ -225,14 +226,16 @@ def verify_merged_equivalence(
     """Assert every original MV is bitwise identical to its representative
     in the merged store — the MQO correctness contract: sharing may change
     how often a subtree executes, never the bytes any view stores. Each
-    representative is read once and held against every MV it stands for."""
+    representative is read once and held against every MV it stands for,
+    read side by side with them (one thread each)."""
     by_rep: dict[str, list[str]] = {}
     for node in merged.source.nodes:
         by_rep.setdefault(merged.name_map[node.name], []).append(node.name)
-    for rep, names in by_rep.items():
-        got = shared_store.read(rep)
-        for name in names:
-            T.assert_tables_bitwise(ref_store.read(name), got, f"{name}->{rep}")
+    with cf.ThreadPoolExecutor(1 + max(map(len, by_rep.values()), default=0)) as pool:
+        for rep, names in by_rep.items():
+            got = pool.submit(shared_store.read, rep)
+            for name, want in zip(names, pool.map(ref_store.read, names)):
+                T.assert_tables_bitwise(want, got.result(), f"{name}->{rep}")
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ provides.
   hosts slower than ``threshold ×`` median for ``patience`` consecutive steps
   are flagged (the caller re-dispatches or evicts; here surfaced as events).
 * ``elastic_restore`` — checkpoints are topology-agnostic arrays keyed by
-  leaf path; restoring on other devices is a copy to each leaf's new place.
+  leaf path; restoring on other devices is a copy to each leaf's new place,
+  on a mesh each rank's shard of it.
 """
 from __future__ import annotations
 
@@ -119,28 +120,41 @@ def elastic_restore(flat: dict, template: Any, shardings: Any = None) -> Any:
     ``flat`` maps each leaf's "/"-joined path to its array (numpy or
     tensor), as either package's ``CheckpointManager.restore_flat`` returns
     it. Each leaf takes its template leaf's dtype. ``shardings=None`` puts
-    it on its template leaf's device; a pytree of ``torch.device`` matching
-    the template places each leaf. Sharded placements come with the
-    sharding slice of the port and raise ``NotImplementedError``."""
+    it on its template leaf's device; otherwise a pytree with the
+    template's structure gives each leaf's place: a ``torch.device``, or a
+    sharding on a mesh (anything with ``.mesh`` and ``.spec``, as the
+    reference takes any leaf with a ``spec``: ``sharding.layout.
+    NamedSharding``), for which the whole array is cut to this rank's shard
+    (``sharding.layout.shard_tensor``, the fused gate|up dimension by its
+    ``fused_last``) on its template leaf's device; the shard must have the
+    template leaf's shape."""
     paths, spec = pytree.tree_flatten_with_path(template)
     if shardings is None:
         places = [None] * len(paths)
     else:
-        places = pytree.tree_leaves(shardings)
-        if len(places) != len(paths):
+        placed = dict((_leaf_key(path), place) for path, place in
+                      pytree.tree_flatten_with_path(shardings)[0])
+        if len(placed) != len(paths) or any(_leaf_key(p) not in placed for p, _ in paths):
             raise ValueError(
-                f"{len(places)} placements for {len(paths)} template leaves")
-        bad = [p for p in places if not isinstance(p, torch.device)]
+                f"{len(placed)} placements for {len(paths)} template leaves")
+        places = [placed[_leaf_key(path)] for path, _ in paths]
+        bad = [p for p in places if not (isinstance(p, torch.device) or hasattr(p, "spec"))]
         if bad:
-            raise NotImplementedError(
-                f"placement {bad[0]!r}: elastic_restore places leaves on "
-                "torch.device only; sharded placements come with the "
-                "sharding slice")
+            raise TypeError(f"placement {bad[0]!r}: elastic_restore places a leaf on a "
+                            "torch.device or a sharding with .mesh and .spec")
     out = []
     for (path, leaf), place in zip(paths, places):
         like = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(leaf)
-        arr = _as_tensor(flat[_leaf_key(path)]).to(
-            device=like.device if place is None else place, dtype=like.dtype,
-            copy=True)
-        out.append(arr)
+        arr = _as_tensor(flat[_leaf_key(path)])
+        if hasattr(place, "spec"):
+            from ..sharding.layout import shard_tensor
+
+            arr = shard_tensor(arr, place.spec, place.mesh,
+                               fused_last=getattr(place, "fused_last", False))
+            if arr.shape != like.shape:
+                raise ValueError(f"{_leaf_key(path)}: a shard of shape {tuple(arr.shape)} "
+                                 f"for a template leaf of {tuple(like.shape)}")
+            place = None
+        out.append(arr.to(device=like.device if place is None else place, dtype=like.dtype,
+                          copy=True))
     return pytree.tree_unflatten(out, spec)

@@ -3,6 +3,7 @@
 compression) and the port's own collectives and layout of tensors over a
 mesh."""
 from . import collectives, compression, context, layout
+from .layout import NamedSharding
 from .strategy import (
     PartitionSpec,
     activation_sharding_constraint,
@@ -20,6 +21,7 @@ __all__ = [
     "compression",
     "context",
     "layout",
+    "NamedSharding",
     "PartitionSpec",
     "param_specs",
     "opt_state_specs",

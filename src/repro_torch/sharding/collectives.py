@@ -12,7 +12,8 @@ and runs nothing. The kinds are ``all_reduce`` (sum or max),
 
 **Counting.** Each kind's calls and the bytes this rank hands to them (a
 half type's sum: its f32 copy) are counted (:func:`counts`,
-:func:`reset_counts`), as ``native.launch`` counts kernel launches.
+:func:`reset_counts`), as ``native.launch`` counts kernel launches; a
+gather given a ``tag`` is also counted under it (``counts()["tags"]``).
 
 **The backend rule.** NCCL when every rank has a card of its own
 (:func:`backend_for`). NCCL refuses ranks that share one device, so ranks
@@ -42,13 +43,16 @@ _lock = threading.Lock()
 _calls = dict.fromkeys(KINDS, 0)
 _bytes = dict.fromkeys(KINDS, 0)
 _staged = [0]
+_tags: dict[str, dict[str, int]] = {}
 
 
 def counts() -> dict:
-    """``{"calls": {kind: n}, "bytes": {kind: n}, "host_staged_bytes": n}``
-    since the last :func:`reset_counts`."""
+    """``{"calls": {kind: n}, "bytes": {kind: n}, "host_staged_bytes": n,
+    "tags": {tag: {"calls": n, "bytes": n}}}`` since the last
+    :func:`reset_counts`."""
     with _lock:
-        return {"calls": dict(_calls), "bytes": dict(_bytes), "host_staged_bytes": _staged[0]}
+        return {"calls": dict(_calls), "bytes": dict(_bytes), "host_staged_bytes": _staged[0],
+                "tags": {t: dict(c) for t, c in _tags.items()}}
 
 
 def reset_counts() -> None:
@@ -56,6 +60,7 @@ def reset_counts() -> None:
         for k in KINDS:
             _calls[k] = _bytes[k] = 0
         _staged[0] = 0
+        _tags.clear()
 
 
 def backend_for(device: str | torch.device, ranks_per_card: int) -> str:
@@ -64,10 +69,15 @@ def backend_for(device: str | torch.device, ranks_per_card: int) -> str:
     return "nccl" if torch.device(device).type == "cuda" and ranks_per_card == 1 else "gloo"
 
 
-def _count(kind: str, group, x: torch.Tensor, out: torch.Tensor) -> None:
+def _count(kind: str, group, x: torch.Tensor, out: torch.Tensor,
+           tag: str | None = None) -> None:
     with _lock:
         _calls[kind] += 1
         _bytes[kind] += x.numel() * x.element_size()
+        if tag is not None:
+            c = _tags.setdefault(tag, {"calls": 0, "bytes": 0})
+            c["calls"] += 1
+            c["bytes"] += x.numel() * x.element_size()
         if x.is_cuda and dist.get_backend(group) == "gloo":
             _staged[0] += (x.numel() * x.element_size() + out.numel() * out.element_size())
 
@@ -97,7 +107,8 @@ def all_reduce(x: torch.Tensor, axis, op: str = "sum", mesh=None) -> torch.Tenso
     return y.to(x.dtype)
 
 
-def all_gather(x: torch.Tensor, axis, dim: int = 0, mesh=None) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axis, dim: int = 0, mesh=None,
+               tag: str | None = None) -> torch.Tensor:
     """The axis's ranks' x concatenated along ``dim`` in axis order."""
     mesh, n = _group(axis, mesh)
     if n == 1:
@@ -106,7 +117,7 @@ def all_gather(x: torch.Tensor, axis, dim: int = 0, mesh=None) -> torch.Tensor:
     src = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, src, group=group)
-    _count("all_gather", group, src, out)
+    _count("all_gather", group, src, out, tag)
     return out.movedim(0, dim)
 
 
@@ -170,13 +181,13 @@ class _ReduceFrom(torch.autograd.Function):
 
 class _GatherFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis, dim, mesh):
+    def forward(ctx, x, axis, dim, mesh, tag):
         ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
-        return all_gather(x, axis, dim, mesh)
+        return all_gather(x, axis, dim, mesh, tag)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter(g, ctx.axis, ctx.dim, ctx.mesh), None, None, None
+        return reduce_scatter(g, ctx.axis, ctx.dim, ctx.mesh), None, None, None, None
 
 
 def copy_to(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
@@ -194,9 +205,11 @@ def reduce_from(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
     return x if mesh.axis_size(axis) == 1 else _ReduceFrom.apply(x, axis, mesh)
 
 
-def gather_from(x: torch.Tensor, axis, dim: int, mesh=None) -> torch.Tensor:
+def gather_from(x: torch.Tensor, axis, dim: int, mesh=None,
+                tag: str | None = None) -> torch.Tensor:
     """The axis's shards of x joined along ``dim`` (an FSDP weight before
     use); the gradient is summed over the axis and split back
-    (``reduce_scatter``), so each rank gets its shard's whole gradient."""
+    (``reduce_scatter``), so each rank gets its shard's whole gradient.
+    ``tag`` counts the forward's gather under that name too."""
     mesh = get_mesh() if mesh is None else mesh
-    return x if mesh.axis_size(axis) == 1 else _GatherFrom.apply(x, axis, dim, mesh)
+    return x if mesh.axis_size(axis) == 1 else _GatherFrom.apply(x, axis, dim, mesh, tag)

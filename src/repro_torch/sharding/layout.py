@@ -17,6 +17,10 @@ shard as it splits the whole tensor. :func:`shard_tensor` and
 """
 from __future__ import annotations
 
+import dataclasses
+from collections.abc import Mapping
+from typing import Any
+
 import torch
 
 from ..configs.base import ModelConfig
@@ -39,6 +43,27 @@ def _interleave(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
 def _deinterleave(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     f = t.shape[dim] // (2 * n)
     return t.unflatten(dim, (n, 2, f)).transpose(dim, dim + 1).flatten(dim, dim + 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A tensor's place on a mesh, the counterpart of
+    ``jax.sharding.NamedSharding``: the mesh and the spec, and whether the
+    last dimension is a fused gate|up one (:func:`is_fused`).
+    ``runtime.elastic_restore`` cuts a whole tensor to this rank's shard by
+    it (:func:`shard_tensor`)."""
+    mesh: Any
+    spec: P
+    fused_last: bool = False
+
+
+def named_shardings(specs: Mapping, mesh) -> dict:
+    """A tree of specs (name → spec, or nested mappings of them, as
+    ``param_specs`` and ``train.step.train_state_specs`` give) with each
+    spec replaced by its :class:`NamedSharding`, the fused dimension read
+    from its name."""
+    return {k: named_shardings(v, mesh) if isinstance(v, Mapping)
+            else NamedSharding(mesh, v, is_fused(k)) for k, v in specs.items()}
 
 
 def shard_tensor(t: torch.Tensor, spec: P, mesh, rank: int | None = None,

@@ -15,8 +15,12 @@ import torch
 
 from repro.checkpoint import CheckpointManager as RefCheckpointManager
 from repro.runtime.ft import elastic_restore as ref_elastic_restore
+from repro_torch import configs as tcfg
+from repro_torch import models as tm
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.launch import mesh as tmesh
 from repro_torch.runtime import elastic_restore
+from repro_torch.sharding import layout, strategy
 
 
 def arrays(seed=5):
@@ -137,9 +141,54 @@ def test_elastic_restore_takes_template_dtypes_and_copies():
 def test_elastic_restore_refuses_other_placements():
     template = {"w": torch.zeros(2), "b": torch.zeros(1)}
     flat = {"w": np.zeros(2, np.float32), "b": np.zeros(1, np.float32)}
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(TypeError, match="placement 'data'"):
         elastic_restore(flat, template, {"w": "data", "b": "data"})
     with pytest.raises(ValueError, match="placements"):
         elastic_restore(flat, template, {"w": torch.device("cpu")})
     with pytest.raises(KeyError):
         elastic_restore({"w": flat["w"]}, template)
+
+
+def test_device_placements_are_matched_by_path():
+    """A placement pytree built in another key order places each leaf by
+    its path, as before."""
+    a = arrays()
+    flat = {f"params/{k}": v for k, v in (("w", a["params"]["w"]), ("b", a["params"]["b"]))}
+    template = {"params": {"w": torch.zeros(4, 3), "b": torch.zeros(3, dtype=torch.bfloat16)}}
+    got = elastic_restore(flat, template,
+                          {"params": {"b": torch.device("cpu"), "w": torch.device("cpu")}})
+    assert torch.equal(got["params"]["w"], torch.from_numpy(a["params"]["w"]))
+    assert got["params"]["b"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_named_sharding_restores_the_rank_shard(tmp_path, monkeypatch, rank):
+    """A whole reduced mamba2-2.7b written by ``CheckpointManager`` and
+    restored with ``NamedSharding`` placements on a 2 x 2 mesh gives rank
+    ``rank`` exactly ``shard_tensor``'s cut of every tensor, SSD heads and
+    d_inner split over ``model``."""
+    cfg = tcfg.get_config("mamba2-2.7b").reduced(dtype="float32")
+    whole = dict(tm.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+                 .named_parameters())
+    CheckpointManager(tmp_path).save({"params": whole}, 1, blocking=True)
+    mesh = tmesh.Mesh((2, 2), ("data", "model"))
+    monkeypatch.setattr(tmesh.dist, "get_rank", lambda: rank)
+    specs = strategy.param_specs(cfg, whole, mesh)
+    template = {"params": {k: torch.empty(
+        layout.shard_tensor(t, specs[k], mesh).shape) for k, t in whole.items()}}
+    got = elastic_restore(CheckpointManager(tmp_path).restore_flat(), template,
+                          {"params": layout.named_shardings(specs, mesh)})
+    for k, t in whole.items():
+        assert torch.equal(got["params"][k], layout.shard_tensor(t, specs[k], mesh)), k
+    h = mesh.axis_index("model") * cfg.ssm_heads // 2
+    assert torch.equal(got["params"]["layers.0.mixer.a_log"],
+                       whole["layers.0.mixer.a_log"][h:h + cfg.ssm_heads // 2])
+
+
+def test_named_sharding_refuses_a_template_of_another_shape(monkeypatch):
+    monkeypatch.setattr(tmesh.dist, "get_rank", lambda: 0)
+    mesh = tmesh.Mesh((1, 2), ("data", "model"))
+    place = layout.NamedSharding(mesh, strategy.P(None, "model"))
+    with pytest.raises(ValueError, match="shard of shape"):
+        elastic_restore({"w": np.zeros((2, 4), np.float32)}, {"w": torch.zeros(2, 4)},
+                        {"w": place})

@@ -27,7 +27,11 @@ import torch.distributed as dist
 
 from repro_torch import configs as tcfg
 from repro_torch import models as tm
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.launch import mesh as tmesh
+from repro_torch.models import layers as tl
+from repro_torch.runtime import elastic_restore
+from repro_torch.serve import greedy_generate
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding import compression as tcomp
 from repro_torch.sharding import layout, strategy
@@ -227,8 +231,99 @@ def train_case(root, name, arch, over, mesh_shape, fsdp, compress, opt, dp, rows
             "step": int(state["opt"]["step"]), "counts": counts}
 
 
+def prog_ssm(rank, world, root, forward, train):
+    """The Mamba-2 and hybrid cases of ``test_torch_sharded_ssm`` in one
+    spawn: each of ``forward`` (:func:`ssm_serve_case`) and each of
+    ``train`` (:func:`ssm_train_case`) on the files of ``root/<name>``."""
+    out = {c["name"]: ssm_serve_case(root / c["name"], **c) for c in forward}
+    out.update({c["name"]: ssm_train_case(root / c["name"], **c) for c in train})
+    return out
+
+
+def ssm_serve_case(root, name, arch, over, mesh_shape, fsdp, seq, new, naive_norm=False):
+    """:func:`forward_case`, then ``greedy_generate`` of ``new`` tokens on
+    the mesh from the first ``seq`` tokens of every row (the global prompt;
+    every rank returns the global tokens), and ``elastic_restore`` of the
+    whole weights' checkpoint (``root/ckpt``) onto this rank's shards
+    against ``shard_params``. With ``naive_norm`` only the forward's logits,
+    with the gated norm run on each rank's d_inner columns alone."""
+    if naive_norm:
+        cfg = dataclasses.replace(tcfg.get_config(arch).reduced(**over), fsdp_params=fsdp)
+        mesh = tmesh.make_local_mesh(*mesh_shape)
+        model = layout.shard_params(model_from(cfg, np.load(root / "weights.npz")), mesh)
+        tok = local_batch({"t": torch.from_numpy(np.load(root / "tokens.npy"))}, mesh)["t"]
+        gated = tl._gated_norm
+        tl._gated_norm = _norm_on_local_columns
+        try:
+            with mesh_context(mesh), torch.no_grad():
+                logits = tm.forward(cfg, model, tok)[0]
+        finally:
+            tl._gated_norm = gated
+        return {"logits": _gather_logits(logits, mesh)}
+    C.reset_counts()
+    out = forward_case(root, name, arch, over, mesh_shape, fsdp, "gather", seq)
+    cfg = dataclasses.replace(tcfg.get_config(arch).reduced(**over), fsdp_params=fsdp)
+    mesh = tmesh.make_local_mesh(*mesh_shape)
+    whole = model_from(cfg, np.load(root / "weights.npz"))
+    model = layout.init_sharded_params(cfg, torch.Generator().manual_seed(1), mesh, "cpu")
+    prompt = torch.from_numpy(np.load(root / "tokens.npy"))[:, :seq]
+    with mesh_context(mesh):
+        named = dict(model.named_parameters())
+        restored = elastic_restore(
+            CheckpointManager(root / "ckpt").restore_flat(), {"params": named},
+            {"params": layout.named_shardings(strategy.param_specs(cfg, named, mesh), mesh)})
+        with torch.no_grad():
+            for k, p in named.items():
+                p.copy_(restored["params"][k])
+        want = dict(layout.shard_params(whole, mesh).named_parameters())
+        out["restore_bitwise"] = all(torch.equal(restored["params"][k], want[k]) for k in want)
+        out["restore_shapes"] = {k: tuple(t.shape) for k, t in restored["params"].items()}
+        out["greedy"] = greedy_generate(cfg, model, prompt, new, device="cpu")
+    out["counts"] = C.counts()
+    return out
+
+
+def _norm_on_local_columns(cfg, g, w, mesh):
+    """The gated norm done wrong: RMSNorm over the rank's d_inner columns
+    of g alone, with its columns of norm_w."""
+    first, di = mesh.axis_index("model") * g.shape[-1], g.shape[-1]
+    return tl.ops.rmsnorm(g, w[first:first + di].contiguous(), eps=cfg.norm_eps)
+
+
+def ssm_train_case(root, name, arch, over, mesh_shape, fsdp, opt, dp, rows):
+    """:func:`train_case`, then ``elastic_restore`` of the reference's
+    whole state after the step (``root/ckpt``: params, m, v and the step)
+    onto this rank's shards by ``train_state_specs`` (the params by
+    ``param_specs``, the moments by ``opt_state_specs``) against the shards
+    cut by ``shard_tensor`` and ``zero_slice``."""
+    out = train_case(root, name, arch, over, mesh_shape, fsdp, False, opt, dp, rows)
+    cfg = dataclasses.replace(tcfg.get_config(arch).reduced(**over), fsdp_params=fsdp)
+    mesh = tmesh.make_local_mesh(*mesh_shape)
+    model = layout.init_sharded_params(cfg, torch.Generator().manual_seed(1), mesh, "cpu")
+    flat = CheckpointManager(root / "ckpt").restore_flat()
+    with mesh_context(mesh):
+        state = tstep.init_train_state(cfg, model)
+        named = {k: p.detach() for k, p in model.named_parameters()}
+        specs = tstep.train_state_specs(cfg, named, mesh)
+        got = elastic_restore(flat, {"params": named, "opt": state["opt"]},
+                              layout.named_shardings(specs, mesh))
+    pspec, ospec = specs["params"], specs["opt"]["m"]
+    same = torch.equal(got["opt"]["step"], flat["opt/step"])
+    for k in named:
+        cut = layout.shard_tensor(flat[f"params/{k}"], pspec[k], mesh,
+                                  fused_last=layout.is_fused(k))
+        same &= torch.equal(got["params"][k], cut)
+        for key in ("m", "v"):
+            part = layout.zero_slice(layout.shard_tensor(flat[f"opt/{key}/{k}"], pspec[k], mesh,
+                                                         fused_last=layout.is_fused(k)),
+                                     pspec[k], ospec[k], mesh)
+            same &= torch.equal(got["opt"][key][k], part)
+    out["restore_bitwise"] = bool(same)
+    return out
+
+
 PROGRAMS = {"collectives": prog_collectives, "autograd": prog_autograd,
-            "forward": prog_forward, "train": prog_train}
+            "forward": prog_forward, "train": prog_train, "ssm": prog_ssm}
 
 
 # ---------------------------------------------------------------------------

@@ -97,7 +97,13 @@ def assert_no_catalog_leak(rep):
 
 @pytest.mark.parametrize("n_hosts", [1, 2, 4])
 def test_fault_free_bitwise_thread(n_hosts):
-    rep, store = run_mh(7, "insert", n_hosts, backend="thread")
+    """No fault, so no host lost and nothing re-dispatched. Straggler
+    speculation is off, as in the matrix cells: under CPU load from tests
+    running beside it the detector flagged a live host thread and
+    re-dispatched its partitions (speculation has its own tests in
+    ``test_torch_multihost_faults.py``)."""
+    rep, store = run_mh(7, "insert", n_hosts, backend="thread",
+                        straggler=pmv.StragglerConfig(speculate=False))
     assert_matches_reference(store, 7, "insert")
     assert_no_catalog_leak(rep)
     assert not rep.redispatches and not rep.hosts_lost

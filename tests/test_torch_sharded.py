@@ -279,37 +279,44 @@ def grid_flipped(got, want, what):
 @pytest.mark.parametrize("name", names(TRAIN))
 def test_sharded_train_step_matches_reference(train_runs, name):
     want, ranks = train_runs
-    w = want[name]
+    for r, got in enumerate(ranks):
+        assert_train_step_matches(got[name], want[name], f"{name} rank {r}")
+
+
+def assert_train_step_matches(res, w, what, atol=None, norm_rtol=REL):
+    """One rank's train step (metrics and gathered state) against the
+    reference's, within the tolerances of this module's docstring; with
+    ``atol`` (``{"params", "m", "v"}``) each tensor within those absolute
+    limits instead of ``REL`` of its largest element, and the gradient
+    norm within ``norm_rtol``."""
     opt = jopt.AdamWConfig(**OPT)
     lr = w["metrics"]["lr"]
-    for r, got in enumerate(ranks):
-        res = got[name]
-        what = f"{name} rank {r}"
-        assert res["step"] == 1
-        for key in ("loss", "grad_norm", "lr"):
-            np.testing.assert_allclose(res["metrics"][key], w["metrics"][key], rtol=REL,
-                                       atol=0.0, err_msg=f"{what} {key}")
-        state = res["state"]
-        flipped = ({k: np.zeros(a.shape, bool) for k, a in w["params"].items()}
-                   if w["ef_error"] is None else grid_flipped(state["ef_error"], w["ef_error"],
-                                                              what))
-        assert set(state["params"]) == set(w["params"])
-        n = off = 0
-        for k, want_p in w["params"].items():
-            for key in ("m", "v"):
-                got_t, want_t = state[key][k].numpy(), w[key][k]
-                bad = ~np.isclose(got_t, want_t, rtol=0.0, atol=REL * np.abs(want_t).max()
-                                  + 1e-30) & ~flipped[k]
-                assert not bad.any(), f"{what} {key} {k}"
-            got_p = state["params"][k].numpy()
-            out = ~np.isclose(got_p, want_p, rtol=0.0, atol=REL * np.abs(want_p).max())
-            free = ill_conditioned(w["m"][k], opt.b1) | flipped[k]
-            assert not (out & ~free).any(), \
-                f"{what} params {k}: {np.abs(got_p - want_p)[out & ~free].max()}"
-            assert (np.abs(got_p - want_p)[out] <= lr * (1 + opt.weight_decay) * 2).all(), k
-            n, off = n + want_p.size, off + int(out.sum())
-        assert off <= max(ADAM_SHARE * n, FLIP_SHARE * n if w["ef_error"] is not None else 0), \
-            f"{what}: {off} of {n} parameters apart"
+    assert res["step"] == 1
+    for key, rtol in (("loss", REL), ("grad_norm", norm_rtol), ("lr", REL)):
+        np.testing.assert_allclose(res["metrics"][key], w["metrics"][key], rtol=rtol,
+                                   atol=0.0, err_msg=f"{what} {key}")
+    state = res["state"]
+    flipped = ({k: np.zeros(a.shape, bool) for k, a in w["params"].items()}
+               if w["ef_error"] is None else grid_flipped(state["ef_error"], w["ef_error"],
+                                                          what))
+    assert set(state["params"]) == set(w["params"])
+    n = off = 0
+    for k, want_p in w["params"].items():
+        for key in ("m", "v"):
+            got_t, want_t = state[key][k].numpy(), w[key][k]
+            lim = REL * np.abs(want_t).max() + 1e-30 if atol is None else atol[key]
+            bad = ~np.isclose(got_t, want_t, rtol=0.0, atol=lim) & ~flipped[k]
+            assert not bad.any(), f"{what} {key} {k}"
+        got_p = state["params"][k].numpy()
+        lim = REL * np.abs(want_p).max() if atol is None else atol["params"]
+        out = ~np.isclose(got_p, want_p, rtol=0.0, atol=lim)
+        free = ill_conditioned(w["m"][k], opt.b1) | flipped[k]
+        assert not (out & ~free).any(), \
+            f"{what} params {k}: {np.abs(got_p - want_p)[out & ~free].max()}"
+        assert (np.abs(got_p - want_p)[out] <= lr * (1 + opt.weight_decay) * 2).all(), k
+        n, off = n + want_p.size, off + int(out.sum())
+    assert off <= max(ADAM_SHARE * n, FLIP_SHARE * n if w["ef_error"] is not None else 0), \
+        f"{what}: {off} of {n} parameters apart"
 
 
 @pytest.mark.parametrize("name", names(TRAIN))

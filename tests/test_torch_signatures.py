@@ -6,9 +6,9 @@ the JAX package on the CPU.
 the reference's meaning: every parameter (and dataclass field) of these
 reference signatures, and of ``init_moe``, ``moe_forward``, the train
 step's (``make_train_step(dp=)`` included), the sharding strategy's, the
-mesh context's and the meshes', is in the port's with the same default;
-``init_mlp``
-and ``make_ssm_cache`` give the reference's shapes and dtypes;
+mesh context's, the meshes', ``greedy_generate``'s and
+``elastic_restore``'s, is in the port's with the same default;
+``init_mlp`` and ``make_ssm_cache`` give the reference's shapes and dtypes;
 ``write_cache``'s cache (the post-RoPE k and v on the cache-less path, the
 cache written in place on the cache path) lies within the model tolerance
 of the reference's ``new_cache`` for the same weights, and leaving it out
@@ -24,6 +24,8 @@ import pytest
 import torch
 
 import repro.launch.mesh as jmesh
+import repro.runtime.ft as jft
+import repro.serve.step as jserve
 import repro.models.layers as jl
 import repro.sharding.compression as jcomp
 import repro.sharding.context as jctx
@@ -33,6 +35,8 @@ import repro.train.step as jstep
 from repro import configs as jcfg
 from repro.kernels import dispatch
 import repro_torch.launch.mesh as tmesh
+import repro_torch.runtime.ft as tft
+import repro_torch.serve.step as tserve
 import repro_torch.models.layers as tl
 import repro_torch.sharding.compression as tcomp
 import repro_torch.sharding.context as tctx
@@ -64,7 +68,8 @@ def test_every_reference_parameter_is_in_the_port(name):
 
 
 MODULES = {"compression": (jcomp, tcomp), "step": (jstep, tstep),
-           "strategy": (jstrat, tstrat), "context": (jctx, tctx), "mesh": (jmesh, tmesh)}
+           "strategy": (jstrat, tstrat), "context": (jctx, tctx), "mesh": (jmesh, tmesh),
+           "serve": (jserve, tserve), "ft": (jft, tft)}
 
 
 @pytest.mark.parametrize("module,name", [
@@ -79,7 +84,7 @@ MODULES = {"compression": (jcomp, tcomp), "step": (jstep, tstep),
     ("strategy", "audit_divisibility"),
     ("context", "set_mesh"), ("context", "get_mesh"), ("context", "mesh_context"),
     ("mesh", "make_production_mesh"), ("mesh", "make_local_mesh"),
-    ("mesh", "required_devices")])
+    ("mesh", "required_devices"), ("serve", "greedy_generate"), ("ft", "elastic_restore")])
 def test_compression_and_train_step_take_every_reference_parameter(module, name):
     """Every parameter of the reference's function is the port's, in the
     same order and with the same default; the port may add parameters after

@@ -110,6 +110,50 @@ def test_cache_specs_equal_reference(arch, mesh_kind):
             assert len(spec) == tcache[n][k].dim()
 
 
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b"])
+def test_mamba_cache_specs_on_small_meshes(arch, shape, monkeypatch):
+    """The Mamba-2 decode state's specs on the meshes the sharded tests run
+    (batch over ``data``, ``conv_x``'s d_inner and ``ssm``'s heads over
+    ``model``, ``conv_bc`` whole) equal the reference's, and
+    ``make_cache`` under such a mesh gives every rank its shard's shape."""
+    over = dict(n_layers=8) if arch.startswith("jamba") else {}
+    jc, tc = jcfg.get_config(arch).reduced(**over), tcfg.get_config(arch).reduced(**over)
+    fake = FakeMesh(shape, ("data", "model"))
+    jcache = jax.eval_shape(lambda: jm.make_cache(jc, 4, 16))
+    whole = tm.make_cache(tc, 4, 16, "meta")
+    jspec, tspec = jstrat.cache_specs(jc, jcache, fake), tstrat.cache_specs(tc, whole, fake)
+    for n, entry in enumerate(tspec):
+        want = jspec[f"sub{n % len(tc.pattern)}"]
+        assert {k: tuple(v) for k, v in entry.items()} == {
+            k: tuple(v)[1:] for k, v in want.items()}, n
+    ssm = next(e for e in tspec if "ssm" in e)
+    assert tuple(ssm["conv_x"]) == ("data", None, "model")
+    assert tuple(ssm["conv_bc"]) == ("data", None, None)
+    assert tuple(ssm["ssm"]) == ("data", "model", None, None)
+    mesh = tmesh.Mesh(shape, ("data", "model"))
+    sizes = dict(zip(mesh.axis_names, shape))
+    for rank in range(mesh.size):
+        monkeypatch.setattr(tmesh.dist, "get_rank", lambda rank=rank: rank)
+        with tctx.mesh_context(mesh):
+            local = tm.make_cache(tc, 4, 16, "meta")
+        for n, entry in enumerate(tspec):
+            for k, spec in entry.items():
+                cut = tuple(dim // int(np.prod([sizes[a] for a in tstrat.axes_of(e)]))
+                            for dim, e in zip(whole[n][k].shape, spec))
+                assert tuple(local[n][k].shape) == cut, (rank, n, k)
+
+
+def test_ssd_heads_that_do_not_split_are_refused(monkeypatch):
+    """8 SSD heads over 3 model ranks: the reference would replicate them;
+    the port refuses by name."""
+    tc = tcfg.get_config("mamba2-2.7b").reduced()
+    monkeypatch.setattr(tmesh.dist, "get_rank", lambda: 0)
+    with tctx.mesh_context(tmesh.Mesh((1, 3), ("data", "model"))):
+        with pytest.raises(ValueError, match="SSD heads do not split 3 ways"):
+            tm.make_cache(tc, 3, 16, "meta")
+
+
 def test_audit_reports_what_the_reference_reports():
     """A reduced model on the production mesh breaks divisibility: the port
     reports, for each layer's tensor under its stacked leaf's path, the
